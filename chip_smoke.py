@@ -1,22 +1,30 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--frames N] [--lock-frames N]
+    python3 chip_smoke.py [--seed N] [--frames N] [--lock-frames N] [--orb-frames N]
 
-Phases (each prints one line; any failure raises and the exit code is not 0):
+Phases (each prints its lines; any failure raises and the exit code is not 0):
 
 1. device: CUDA must be available (no CPU fallback); torch/CUDA versions and
    the card's name and power limit from nvidia-smi;
-2. build: compile the affine-resample kernel from ``csrc/`` (seconds);
-3. kernel vs plain: the resample kernel and the full 2-pass warp against
-   their plain PyTorch versions on the card at every main-path shape, with
-   median CUDA-event times;
-4. the slice: bench config 1 (1080x1920 frames, working height 360, window
-   30 + 1 + 15) through ``Stabilizer.stabilize_frame`` on footage rendered on
-   the card by the port's simulator; GLOBAL_SMOOTHING, then
+2. build: compile every kernel of ``csrc/``, one nvcc per source, all at
+   once (seconds each);
+3. kernels vs plain: the resample kernel and the full 2-pass warp at every
+   warp shape of configs 1 and 3, and the FAST kernel at the ten ORB level shapes of a
+   360x640 working image (random integer images and the real level images
+   of one rendered 720x1280 frame), against their plain PyTorch versions on
+   the card, with median CUDA-event times;
+4. the config-1 slice: bench config 1 (1080x1920 frames, working height
+   360, window 30 + 1 + 15) through ``Stabilizer.stabilize_frame`` on footage
+   rendered on the card by the port's simulator; GLOBAL_SMOOTHING, then
    ACCUMULATED_FULL_LOCK; launch counts, corner drift against the analytic
    inter-frame motion, jitter reduction, ms/frame;
-5. reference: the same step on a small clip, on the card and on the CPU
-   (plain versions), frame for frame.
+5. the ORB slice: bench config 3 (720x1280 frames, working height 360, the
+   default ORB settings, window 30 + 1 + 15) in ORB_FULL_LOCK through
+   ``Stabilizer.stabilize_frame``; launch counts of both kernels, the
+   captured reference, lock matches, jitter against the raw footage and an
+   ideal lock, ms/frame;
+6. reference: the step on a small clip, on the card and on the CPU (plain
+   versions), frame for frame, in GLOBAL_SMOOTHING and in ORB_FULL_LOCK.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -34,18 +42,39 @@ import time
 import numpy as np
 import torch
 
-SHAPES = ((1, 90, 160), (1, 180, 320), (1, 360, 640), (3, 1080, 1920))
-# per-frame count of 2-pass warps at each shape (LK levels 2, 1, 0 x2; output)
-WARPS_PER_FRAME = {(1, 90, 160): 1, (1, 180, 320): 1, (1, 360, 640): 2,
-                   (3, 1080, 1920): 1}
-LAUNCHES_PER_FRAME = 2 * sum(WARPS_PER_FRAME.values())
+# per-frame count of 2-pass warps at each shape, by configuration: LK levels
+# 2, 1 and 0 (twice) of the 360x640 working image, then the output frame
+_LK_WARPS = {(1, 90, 160): 1, (1, 180, 320): 1, (1, 360, 640): 2}
+WARPS_PER_FRAME = {"config1": {**_LK_WARPS, (3, 1080, 1920): 1},
+                   "config3": {**_LK_WARPS, (3, 720, 1280): 1}}
+SHAPES = sorted({s for warps in WARPS_PER_FRAME.values() for s in warps})
+LAUNCHES_PER_FRAME = {k: 2 * sum(v.values()) for k, v in WARPS_PER_FRAME.items()}
+# FAST runs once per ORB pyramid level of the 360x640 working image
+FAST_SHAPES = ((360, 640), (300, 533), (250, 444), (208, 370), (174, 309),
+               (145, 257), (121, 214), (100, 179), (84, 149), (70, 124))
 KERNEL_TOL = 1e-3        # max |kernel - plain| on 0-255 content, same card
+FAST_TOL = 0.0           # the FAST kernel equals its plain version bit for bit
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
+# outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+# operations per output pixel: one resample pass (position, floor, two
+# guarded taps, lerp) and the border test fused into pass H; FAST (16
+# margins, 2 x 64 arc min/max, 15 maxima of the bright arcs and 15 minima of
+# the dark ones, one negation (max_k -a_k = -min_k a_k), the final maximum
+# and the threshold test)
+RESAMPLE_OPS = 12
+BORDER_OPS = 10
+FAST_OPS = 177
 DRIFT_TOL = 2.0          # px mean corner drift at working res
 SMOOTH_JITTER = 0.75     # stabilized / raw central-crop jitter
 LOCK_JITTER = 0.4        # accumulated lock / raw jitter
 LOCK_VS_IDEAL = 1.25     # accumulated lock / lock by the analytic motion
+ORB_JITTER = 0.6         # ORB lock / raw presented jitter (tests/test_engine.py)
+ORB_MATCHED = 0.9        # share of registered frames with >= min_points matches
 REF_DRIFT_TOL = 0.05     # px, card vs CPU per-frame last_h
 REF_MEAN_U8 = 0.5        # mean |card - CPU| output, u8 levels
+REF_MATCHES = 2          # |card - CPU| lock matches per frame
 
 
 def rigid(theta_deg: float, tx: float = 0.0, ty: float = 0.0) -> np.ndarray:
@@ -107,13 +136,14 @@ def time_ms(fn, reps: int = 20, inner: int = 10, warmup: int = 3) -> float:
 
 
 def phase_kernel(dev, rng) -> dict:
-    """Kernel vs plain version at every main-path shape; returns the error,
-    and per-frame kernel / plain ms (warps weighted by WARPS_PER_FRAME)."""
+    """Kernel vs plain version at every warp shape of both main paths;
+    returns the error, and per configuration the per-frame kernel / plain ms
+    (warps weighted by WARPS_PER_FRAME) and bound."""
     from video_stabilization_tpu_torch.ops import affine_warp as aw
     from video_stabilization_tpu_torch.ops.warp import _inv3x3
 
     max_err = 0.0
-    ms_frame = plain_ms_frame = 0.0
+    times = {}
     for shape in SHAPES:
         planes = torch.from_numpy(rng.uniform(0, 255, shape).astype(np.float32)).to(dev)
         border = torch.from_numpy(rng.uniform(0, 255, shape[0]).astype(np.float32)).to(dev)
@@ -142,20 +172,88 @@ def phase_kernel(dev, rng) -> dict:
 
         ms = time_ms(lambda: two_pass(aw.resample))
         plain_ms = time_ms(lambda: two_pass(aw.resample_plain))
-        n = WARPS_PER_FRAME[shape]
-        ms_frame += n * ms
-        plain_ms_frame += n * plain_ms
+        times[shape] = (ms, plain_ms)
         print(f"kernel {shape}: 2 passes {ms:.4f} ms, plain {plain_ms:.4f} ms "
               f"(median of 20 x 10 back-to-back, CUDA events)", flush=True)
     if not max_err <= KERNEL_TOL:
         raise AssertionError(f"kernel vs plain max abs {max_err} > {KERNEL_TOL}")
     print(f"kernel vs plain: max abs err {max_err:.3e} <= {KERNEL_TOL} over "
           f"{len(SHAPES)} shapes x {len(TRANSFORMS)} transforms", flush=True)
-    return {"max_abs_err": max_err, "ms": ms_frame, "plain_ms": plain_ms_frame}
+    out = {"max_abs_err": max_err}
+    for name, warps in WARPS_PER_FRAME.items():
+        # least time of one frame's warps: one read of the input and one
+        # write of the output, C·H·W f32 each (a fused 2-pass warp keeps the
+        # intermediate on chip)
+        px = sum(n * c * h * w for (c, h, w), n in warps.items())
+        out[name] = {"ms": sum(n * times[s][0] for s, n in warps.items()),
+                     "plain_ms": sum(n * times[s][1] for s, n in warps.items()),
+                     **bound_ms(8 * px, (2 * RESAMPLE_OPS + BORDER_OPS) * px)}
+        print(f"kernel {name}: per frame {out[name]['ms']:.4f} ms, plain "
+              f"{out[name]['plain_ms']:.4f} ms, bound {out[name]['bound_ms']:.5f} ms "
+              f"({out[name]['bound_by']}, {px} px)", flush=True)
+    return out
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: bytes over the HBM rate or f32
+    operations over the peak rate, whichever is larger."""
+    t_bytes, t_ops = 1e3 * n_bytes / PEAK_BYTES, 1e3 * n_ops / PEAK_F32
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def orb_levels(frame: torch.Tensor, cfg) -> list:
+    """The ORB pyramid levels of one frame's preprocessed working image, as
+    the lock builds them (``engine/lock.py``, ``ops/orb.py``)."""
+    from video_stabilization_tpu_torch.ops.filters import preprocess_for_registration
+    from video_stabilization_tpu_torch.ops.image import (
+        bgr_to_gray, resize_bilinear, resize_nearest)
+
+    wh, ww = cfg.working_size
+    proc = preprocess_for_registration(bgr_to_gray(resize_nearest(frame.float(), wh, ww)))
+    levels = [proc]
+    for h, w in FAST_SHAPES[1:]:
+        levels.append(resize_bilinear(proc, h, w).contiguous())
+    return levels
+
+
+def phase_fast_kernel(dev, rng, levels) -> dict:
+    """The FAST kernel vs its plain version at the ten level shapes, on
+    random integer images and on the real ``levels`` of one frame: exact
+    equality, and per-frame kernel / plain ms (one launch per level)."""
+    from video_stabilization_tpu_torch.ops import fast
+
+    thr = 20.0
+    max_err = 0.0
+    ms_frame = plain_ms_frame = 0.0
+    for shape, level in zip(FAST_SHAPES, levels):
+        if tuple(level.shape) != shape:
+            raise AssertionError(f"level shape {tuple(level.shape)} != {shape}")
+        noise = torch.from_numpy(np.round(rng.uniform(0, 255, shape)).astype(np.float32))
+        n_corners = 0
+        for img in (noise.to(dev), level):
+            k, _ = fast.fast_score(img, thr)
+            p, _ = fast.fast_score_plain(img, thr)
+            max_err = max(max_err, float((k - p).abs().max()))
+            n_corners += int((k > 0).sum())
+        ms = time_ms(lambda: fast.fast_score(level, thr))
+        plain_ms = time_ms(lambda: fast.fast_score_plain(level, thr))
+        ms_frame += ms
+        plain_ms_frame += plain_ms
+        print(f"fast {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of "
+              f"20 x 10 back-to-back, CUDA events); {n_corners} corners", flush=True)
+    if not max_err <= FAST_TOL:
+        raise AssertionError(f"fast kernel vs plain max abs {max_err} > {FAST_TOL}")
+    px = sum(h * w for h, w in FAST_SHAPES)
+    bound = bound_ms(8 * px, FAST_OPS * px)
+    print(f"fast vs plain: max abs err {max_err} over {len(FAST_SHAPES)} level shapes x "
+          f"2 images; per frame kernel {ms_frame:.4f} ms, plain {plain_ms_frame:.4f} ms, "
+          f"bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}, {px} px)", flush=True)
+    return {"max_abs_err": max_err, "ms": ms_frame, "plain_ms": plain_ms_frame, **bound}
 
 
 def render_clip(cfg, n_frames: int, seed: int, dev):
-    """Shaky footage of bench config 1's recipe rendered on ``dev``:
+    """Shaky footage of the benchmark's recipe rendered on ``dev``:
     (frames (T, H, W, 3) uint8, trajectory)."""
     from video_stabilization_tpu_torch.sim import (
         DEFAULT_APP_PARAMS, make_default_texture, render_frame, shake_trajectory)
@@ -190,7 +288,7 @@ def ideal_lock(frames, traj, first: int, stop: int) -> torch.Tensor:
 
 def phase_slice(cfg, n_smooth: int, n_lock: int, seed: int, dev, card: str) -> dict:
     """The main path: Stabilizer.stabilize_frame over rendered footage."""
-    from video_stabilization_tpu.config import StabilizationMode
+    from video_stabilization_tpu_torch.config import StabilizationMode
     from video_stabilization_tpu_torch.engine import Stabilizer
     from video_stabilization_tpu_torch.ops import affine_warp as aw
     from video_stabilization_tpu_torch.sim import inter_frame_homography
@@ -228,12 +326,13 @@ def phase_slice(cfg, n_smooth: int, n_lock: int, seed: int, dev, card: str) -> d
         if o.shape != (hf, wf, 3) or o.dtype != torch.uint8 or o.device != dev:
             raise AssertionError(f"bad output {tuple(o.shape)} {o.dtype} {o.device}")
     n_total = n_smooth + n_lock
-    expected = LAUNCHES_PER_FRAME * n_total - 2 * fallbacks
+    per_frame = LAUNCHES_PER_FRAME["config1"]
+    expected = per_frame * n_total - 2 * fallbacks
     if fallbacks:
         print(f"slice: {fallbacks} warps took the out-of-envelope gather", flush=True)
     if launches != expected or launches == 0:
         raise AssertionError(f"kernel launches {launches} != {expected} "
-                             f"({LAUNCHES_PER_FRAME}/frame x {n_total}, "
+                             f"({per_frame}/frame x {n_total}, "
                              f"{fallbacks} gather fallbacks)")
 
     # inter-frame estimates vs analytic truth (frames 1 .. n_smooth-1)
@@ -260,7 +359,7 @@ def phase_slice(cfg, n_smooth: int, n_lock: int, seed: int, dev, card: str) -> d
     steady = n_smooth - warm
     ms_frame = (ev0.elapsed_time(ev1) / steady) if ev0 is not None else float("nan")
     print(f"slice: {n_smooth} smoothing + {n_lock} lock frames {hf}x{wf} -> "
-          f"working {wh}x{ww}; launches {launches} ({LAUNCHES_PER_FRAME}/frame), "
+          f"working {wh}x{ww}; launches {launches} ({per_frame}/frame), "
           f"gather fallbacks {fallbacks}", flush=True)
     print(f"slice: inter-frame corner drift {drift:.4f} px (< {DRIFT_TOL}); jitter "
           f"raw {j_raw:.3f} smoothed {j_smooth:.3f} (ratio {j_smooth / j_raw:.3f} < "
@@ -282,33 +381,131 @@ def phase_slice(cfg, n_smooth: int, n_lock: int, seed: int, dev, card: str) -> d
     return {"launches": launches, "ms_frame": ms_frame}
 
 
+def phase_orb(cfg, n_frames: int, seed: int, dev, card: str) -> dict:
+    """The ORB slice: Stabilizer.stabilize_frame in ORB_FULL_LOCK from the
+    first frame, whose presentation frame becomes the reference."""
+    from video_stabilization_tpu_torch.config import StabilizationMode
+    from video_stabilization_tpu_torch.engine import Stabilizer
+    from video_stabilization_tpu_torch.ops import affine_warp as aw
+    from video_stabilization_tpu_torch.ops import fast
+
+    frames, traj = render_clip(cfg, n_frames, seed, dev)
+    stab = Stabilizer(cfg, StabilizationMode.ORB_FULL_LOCK, seed=seed, device=dev)
+    hf, wf = cfg.frame_height, cfg.frame_width
+    delay = cfg.future_frames
+    warm = 8
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+
+    fast.launches = 0
+    aw.launches = 0
+    aw.gather_fallbacks = 0
+    outs, matches, is_set = [], [], []
+    for i in range(n_frames):
+        if i == warm:
+            torch.cuda.synchronize()
+            ev0.record()
+            t0 = time.perf_counter()
+        outs.append(stab.stabilize_frame(frames[i]))
+        matches.append(stab.carry.last_lock_matches.clone())
+        is_set.append(stab.carry.orb_ref.is_set.clone())
+    ev1.record()
+    torch.cuda.synchronize()
+    t_host = time.perf_counter() - t0
+    fast_launches, resample_launches = fast.launches, aw.launches
+    fallbacks = aw.gather_fallbacks
+
+    for o in outs:
+        if o.shape != (hf, wf, 3) or o.dtype != torch.uint8 or o.device != dev:
+            raise AssertionError(f"bad output {tuple(o.shape)} {o.dtype} {o.device}")
+    n_levels = len(FAST_SHAPES)
+    if fast_launches != n_levels * n_frames:
+        raise AssertionError(f"fast launches {fast_launches} != {n_levels} x {n_frames}")
+    expected = LAUNCHES_PER_FRAME["config3"] * n_frames - 2 * fallbacks
+    if resample_launches != expected or resample_launches == 0:
+        raise AssertionError(f"resample launches {resample_launches} != {expected}")
+    if not bool(is_set[0]):
+        raise AssertionError("no ORB reference captured on the first frame")
+    if not all(bool(x) for x in is_set):
+        raise AssertionError("the ORB reference was lost")
+    # frames that register a new presentation frame against the reference
+    # (before that the presented frame is the reference itself)
+    registered = [int(m) for m in matches[delay + 1:]]
+    min_points = cfg.ransac.min_points
+    matched = sum(m >= min_points for m in registered) / len(registered)
+
+    # outputs delay+1.. present frames 1..; the reference is frame 0
+    crop = (slice(hf // 4, 3 * hf // 4), slice(wf // 4, 3 * wf // 4))
+    stop = n_frames - delay
+    j_raw = jitter(frames[1:stop], crop)
+    j_lock = jitter(torch.stack(outs[delay + 1:]), crop)
+    j_ideal = jitter(ideal_lock(frames, traj.to("cpu"), 0, stop)[1:], crop)
+    steady = n_frames - warm
+    ms_frame = ev0.elapsed_time(ev1) / steady
+    print(f"orb: {n_frames} ORB_FULL_LOCK frames {hf}x{wf} -> working "
+          f"{cfg.working_size[0]}x{cfg.working_size[1]}; fast launches {fast_launches} "
+          f"({n_levels}/frame), resample launches {resample_launches}, gather "
+          f"fallbacks {fallbacks}", flush=True)
+    print(f"orb: lock matches min {min(registered)} median "
+          f"{statistics.median(registered)} max {max(registered)}; >= {min_points} on "
+          f"{matched:.3f} of {len(registered)} registered frames (>= {ORB_MATCHED})",
+          flush=True)
+    print(f"orb: jitter raw {j_raw:.3f} locked {j_lock:.3f} (ratio {j_lock / j_raw:.3f} "
+          f"< {ORB_JITTER}), ideal lock {j_ideal:.3f} (ratio {j_ideal / j_raw:.3f}; "
+          f"lock/ideal {j_lock / j_ideal:.3f} <= {LOCK_VS_IDEAL})", flush=True)
+    print(f"orb: {ms_frame:.3f} ms/frame (CUDA events, {steady} steady frames), host "
+          f"{1e3 * t_host / steady:.3f} ms/frame; {card}", flush=True)
+    if not matched >= ORB_MATCHED:
+        raise AssertionError(f"lock matches >= {min_points} on only {matched:.3f}")
+    if not j_lock < ORB_JITTER * j_raw:
+        raise AssertionError(f"ORB lock jitter {j_lock} !< {ORB_JITTER} x {j_raw}")
+    if not j_lock <= LOCK_VS_IDEAL * j_ideal:
+        raise AssertionError(f"ORB lock jitter {j_lock} !<= {LOCK_VS_IDEAL} x ideal {j_ideal}")
+    return {"fast_launches": fast_launches, "resample_launches": resample_launches,
+            "ms_frame": ms_frame}
+
+
 def phase_reference(seed: int, dev) -> None:
-    """A small clip through the step on the card and on the CPU."""
-    from video_stabilization_tpu.config import (
-        GFTTConfig, RansacConfig, StabilizationMode, StabilizerConfig)
+    """A small clip through the step on the card and on the CPU, in
+    GLOBAL_SMOOTHING and in ORB_FULL_LOCK."""
+    from video_stabilization_tpu_torch.config import (
+        GFTTConfig, ORBConfig, RansacConfig, StabilizationMode, StabilizerConfig)
     from video_stabilization_tpu_torch.engine import Stabilizer
 
+    # the ORB settings of tests/test_engine.py's small config: a 120 px
+    # working image needs a lower FAST threshold and a looser size filter
     cfg = StabilizerConfig(past_frames=6, future_frames=4, working_height=120,
                            frame_height=240, frame_width=320,
                            gftt=GFTTConfig(max_features=256),
-                           ransac=RansacConfig(num_hypotheses=128))
-    frames, _ = render_clip(cfg, 12, seed, dev)
-    a = Stabilizer(cfg, StabilizationMode.GLOBAL_SMOOTHING, seed=seed, device=dev)
-    b = Stabilizer(cfg, StabilizationMode.GLOBAL_SMOOTHING, seed=seed, device="cpu")
+                           ransac=RansacConfig(num_hypotheses=128),
+                           orb=ORBConfig(max_features=512, n_levels=4,
+                                         max_keypoint_size_ratio=0.5, fast_threshold=8))
+    frames, _ = render_clip(cfg, 16, seed, dev)
     wh, ww = cfg.working_size
-    worst_drift = worst_mean = 0.0
-    for f in frames:
-        oa = a.stabilize_frame(f).cpu()
-        ob = b.stabilize_frame(f.cpu())
-        worst_drift = max(worst_drift, corner_drift(
-            [a.carry.last_h.double().cpu().numpy()], [b.carry.last_h.double().numpy()],
-            ww, wh, skip=0))
-        worst_mean = max(worst_mean, float((oa.float() - ob.float()).abs().mean()))
-    print(f"reference: 12 frames 240x320 card vs CPU: worst last_h drift "
-          f"{worst_drift:.2e} px (< {REF_DRIFT_TOL}), worst mean |out| "
-          f"{worst_mean:.3f} (<= {REF_MEAN_U8})", flush=True)
-    if not (worst_drift < REF_DRIFT_TOL and worst_mean <= REF_MEAN_U8):
-        raise AssertionError("card and CPU disagree on the small clip")
+    for mode, n in ((StabilizationMode.GLOBAL_SMOOTHING, 12),
+                    (StabilizationMode.ORB_FULL_LOCK, 16)):
+        a = Stabilizer(cfg, mode, seed=seed, device=dev)
+        b = Stabilizer(cfg, mode, seed=seed, device="cpu")
+        worst_drift = worst_mean = 0.0
+        worst_matches = 0
+        for f in frames[:n]:
+            oa = a.stabilize_frame(f).cpu()
+            ob = b.stabilize_frame(f.cpu())
+            worst_drift = max(worst_drift, corner_drift(
+                [a.carry.last_h.double().cpu().numpy()], [b.carry.last_h.double().numpy()],
+                ww, wh, skip=0))
+            worst_mean = max(worst_mean, float((oa.float() - ob.float()).abs().mean()))
+            worst_matches = max(worst_matches, abs(int(a.carry.last_lock_matches)
+                                                   - int(b.carry.last_lock_matches)))
+            if bool(a.carry.orb_ref.is_set) != bool(b.carry.orb_ref.is_set):
+                raise AssertionError(f"{mode.name}: card and CPU disagree on the reference")
+        print(f"reference {mode.name}: {n} frames 240x320 card vs CPU: worst last_h "
+              f"drift {worst_drift:.2e} px (< {REF_DRIFT_TOL}), worst mean |out| "
+              f"{worst_mean:.3f} (<= {REF_MEAN_U8}), worst |lock matches| "
+              f"{worst_matches} (<= {REF_MATCHES})", flush=True)
+        if not (worst_drift < REF_DRIFT_TOL and worst_mean <= REF_MEAN_U8
+                and worst_matches <= REF_MATCHES):
+            raise AssertionError(f"{mode.name}: card and CPU disagree on the small clip")
 
 
 def main() -> int:
@@ -316,6 +513,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--frames", type=int, default=64)
     ap.add_argument("--lock-frames", type=int, default=16)
+    ap.add_argument("--orb-frames", type=int, default=64)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -323,8 +521,9 @@ def main() -> int:
               "only on a GPU", file=sys.stderr)
         return 2
     # imported after the device check so a bare copy of this script fails there
-    from video_stabilization_tpu.config import StabilizerConfig
+    from video_stabilization_tpu_torch.config import StabilizerConfig
     from video_stabilization_tpu_torch.ops import affine_warp as aw
+    from video_stabilization_tpu_torch.ops import fast
     from video_stabilization_tpu_torch.utils import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -335,25 +534,53 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
+    names = ("affine_resample", "fast_score")
+    cuda_build.build_kernels(names)
     aw._kernel_lib()
-    print(f"build: affine_resample in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {cuda_build.build_seconds['affine_resample']:.2f} s)", flush=True)
+    fast._kernel_lib()
+    print(f"build: {len(names)} kernels in {time.perf_counter() - t0:.2f} s ("
+          + ", ".join(f"{n} nvcc {cuda_build.build_seconds[n]:.2f} s" for n in names)
+          + ")", flush=True)
 
-    kern = phase_kernel(dev, np.random.default_rng(args.seed))
-    cfg = StabilizerConfig(frame_height=1080, frame_width=1920, working_height=360,
-                           past_frames=30, future_frames=15)
-    sl = phase_slice(cfg, args.frames, args.lock_frames, args.seed, dev, card)
+    rng = np.random.default_rng(args.seed)
+    kern = phase_kernel(dev, rng)
+    cfg3 = StabilizerConfig(frame_height=720, frame_width=1280, working_height=360,
+                            past_frames=30, future_frames=15)
+    frame, _ = render_clip(cfg3, 1, args.seed, dev)
+    fk = phase_fast_kernel(dev, rng, orb_levels(frame[0], cfg3))
+    cfg1 = StabilizerConfig(frame_height=1080, frame_width=1920, working_height=360,
+                            past_frames=30, future_frames=15)
+    sl = phase_slice(cfg1, args.frames, args.lock_frames, args.seed, dev, card)
+    orb = phase_orb(cfg3, args.orb_frames, args.seed, dev, card)
     phase_reference(args.seed, dev)
 
+    # launches: each main path's run, counted from 0 just before it; ms,
+    # plain_ms and bound_ms are per frame.  The top-level numbers of a kernel
+    # are those of the first path that runs it, "paths" holds each path's.
+    resample_paths = {
+        "config1": {"launches": sl["launches"], **kern["config1"]},
+        "config3": {"launches": orb["resample_launches"], **kern["config3"]}}
+    fast_paths = {"config3": {"launches": orb["fast_launches"],
+                              **{k: fk[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                    "bound_by")}}}
     record = {"kernels": [{
         "name": "affine_resample",
         "route": "cuda",
         "source": "video_stabilization_tpu_torch/csrc/affine_resample.cu",
         "replaces": "video_stabilization_tpu/ops/pallas_warp.py:65",
-        "launches": sl["launches"],
+        **resample_paths["config1"],
         "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"],
+        "library_ms": None,
+        "paths": resample_paths,
+    }, {
+        "name": "fast_score",
+        "route": "cuda",
+        "source": "video_stabilization_tpu_torch/csrc/fast_score.cu",
+        "replaces": "video_stabilization_tpu/ops/fast.py:47",
+        **fast_paths["config3"],
+        "max_abs_err": fk["max_abs_err"],
+        "library_ms": None,
+        "paths": fast_paths,
     }]}
     print(nvidia_smi_line(), flush=True)
     print(json.dumps(record), flush=True)

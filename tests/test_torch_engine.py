@@ -18,6 +18,7 @@ from video_stabilization_tpu.engine import smoothing_homography as j_smoothing
 from video_stabilization_tpu.engine.checkpoint import save_carry
 from video_stabilization_tpu.sim import (
     DEFAULT_APP_PARAMS, make_default_texture, render_frame, shake_trajectory)
+from video_stabilization_tpu_torch.config import config_from_fields
 from video_stabilization_tpu_torch.engine import (
     Stabilizer as TStabilizer, carry_from_numpy, carry_to_numpy, smoothing_homography,
     stabilize_step)
@@ -25,7 +26,9 @@ from test_engine import (
     FH, FW, np_reference_smoothing, random_rigid_transforms, small_config)
 
 N_FRAMES = 20
+N_ORB_FRAMES = 16
 LAST_H_DRIFT = 0.05     # px, working resolution
+LOCK_MATCHES = 2        # |Δ| of the lock's good-match count
 MEAN_U8 = 0.5           # mean |Δ| of output frames, u8 levels
 WITHIN_1 = 0.99         # share of output pixels within 1 level
 
@@ -101,7 +104,7 @@ def test_whole_slice_matches_jax(footage, scenario):
     cfg = small_config()
     plan = SCENARIOS[scenario]
     js = JStabilizer(cfg, plan[0][1])
-    ts = TStabilizer(cfg, plan[0][1], device="cpu")
+    ts = TStabilizer(config_from_fields(cfg), plan[0][1], device="cpu")
     for i, frame in enumerate(footage[:N_FRAMES]):
         for at, mode in plan[1:]:
             if i == at:
@@ -113,11 +116,49 @@ def test_whole_slice_matches_jax(footage, scenario):
     assert bool(js.carry.accum_active) == bool(ts.carry.accum_active)
 
 
+ORB_SCENARIOS = {
+    "orb": [(0, StabilizationMode.ORB_FULL_LOCK)],
+    "orb_recapture": [(0, StabilizationMode.GLOBAL_SMOOTHING),
+                      (3, StabilizationMode.ORB_FULL_LOCK),
+                      (8, StabilizationMode.GLOBAL_SMOOTHING),
+                      (10, StabilizationMode.ORB_FULL_LOCK)],
+}
+
+
+@pytest.mark.parametrize("scenario", list(ORB_SCENARIOS))
+def test_orb_slice_matches_jax(footage, scenario):
+    """The ORB registration lock, frame by frame in both packages, through
+    mode switches that clear and recapture the reference."""
+    cfg = small_config()
+    plan = ORB_SCENARIOS[scenario]
+    js = JStabilizer(cfg, plan[0][1])
+    ts = TStabilizer(config_from_fields(cfg), plan[0][1], device="cpu")
+    captured = 0
+    for i, frame in enumerate(footage[:N_ORB_FRAMES]):
+        for at, mode in plan[1:]:
+            if i == at:
+                js.set_stabilization_mode(mode)
+                ts.set_stabilization_mode(mode)
+        jout = js.stabilize_frame(frame)
+        tout = ts.stabilize_frame(frame)
+        where = f"{scenario} frame {i}"
+        assert_step_agrees(js.carry, jout, ts.carry, tout, cfg, where)
+        assert bool(js.carry.orb_ref.is_set) == bool(ts.carry.orb_ref.is_set), where
+        captured += bool(ts.carry.orb_ref.is_set)
+        dm = abs(int(js.carry.last_lock_matches) - int(ts.carry.last_lock_matches))
+        assert dm <= LOCK_MATCHES, f"{where}: lock matches differ by {dm}"
+    assert captured >= N_ORB_FRAMES // 2
+    assert int(ts.carry.last_lock_matches) >= cfg.ransac.min_points
+
+
 @pytest.mark.parametrize("mode", [StabilizationMode.GLOBAL_SMOOTHING,
-                                  StabilizationMode.ACCUMULATED_FULL_LOCK])
+                                  StabilizationMode.ACCUMULATED_FULL_LOCK,
+                                  StabilizationMode.ORB_FULL_LOCK])
 def test_state_carried_across(footage, mode):
     """JAX carry after 8 frames -> carry_from_numpy -> one step in each
-    package: isolates per-step divergence from accumulated divergence."""
+    package: isolates per-step divergence from accumulated divergence.  In
+    ORB_FULL_LOCK the carry holds a captured reference, which must come back
+    unchanged through carry_to_numpy."""
     cfg = small_config()
     js = JStabilizer(cfg, mode)
     for frame in footage[:8]:
@@ -125,9 +166,15 @@ def test_state_carried_across(footage, mode):
     arrays = jax_carry_arrays(js.carry)
     tcarry = carry_from_numpy(arrays, "cpu")
     jcarry, (jout, _) = make_step_fn(cfg)(js.carry, jnp.asarray(footage[8]))
-    tcarry, (tout, _) = stabilize_step(tcarry, torch.from_numpy(footage[8].copy()), cfg,
-                                       int(mode))
+    tcarry, (tout, _) = stabilize_step(tcarry, torch.from_numpy(footage[8].copy()),
+                                       config_from_fields(cfg), int(mode))
     assert_step_agrees(jcarry, jout, tcarry, tout, cfg, "carried step")
+    assert int(jcarry.last_lock_matches) == int(tcarry.last_lock_matches)
+    back = carry_to_numpy(tcarry)
+    for name, arr in jax_carry_arrays(jcarry).items():
+        if name.startswith(".orb_ref"):
+            np.testing.assert_array_equal(back[name], arr, err_msg=name)
+    assert bool(back[".orb_ref.is_set"]) == (mode == StabilizationMode.ORB_FULL_LOCK)
 
 
 def test_save_carry_layout_loads(footage, tmp_path):
@@ -154,7 +201,8 @@ def test_save_carry_layout_loads(footage, tmp_path):
 
 def test_carry_to_numpy_round_trip(footage):
     cfg = small_config()
-    ts = TStabilizer(cfg, StabilizationMode.ACCUMULATED_FULL_LOCK, seed=11, device="cpu")
+    ts = TStabilizer(config_from_fields(cfg), StabilizationMode.ACCUMULATED_FULL_LOCK, seed=11,
+                     device="cpu")
     for frame in footage[:4]:
         ts.stabilize_frame(frame)
     arrays = carry_to_numpy(ts.carry)
@@ -166,15 +214,44 @@ def test_carry_to_numpy_round_trip(footage):
 
 
 def test_first_frame_passthrough(footage):
-    ts = TStabilizer(small_config(), device="cpu")
+    ts = TStabilizer(config_from_fields(small_config()), device="cpu")
     np.testing.assert_array_equal(ts.stabilize_frame(footage[0]).numpy(), footage[0])
 
 
 def test_stabilize_clip_matches_per_frame(footage):
-    cfg = small_config(past=4, future=2)
+    cfg = config_from_fields(small_config(past=4, future=2))
     a = TStabilizer(cfg, seed=7, device="cpu")
     b = TStabilizer(cfg, seed=7, device="cpu")
     outs = a.stabilize_clip(footage[:6])
     for i, frame in enumerate(footage[:6]):
         np.testing.assert_array_equal(outs[i].numpy(), b.stabilize_frame(frame).numpy())
     assert int(a.carry.n) == 6
+
+
+STAGES = {"gray", "pyramid", "lk_track", "inter_frame_fit", "smoothing", "orb_lock",
+          "nearest_downscale", "preprocess", "orb_detect", "match", "lock_ransac",
+          "rotation_split", "warp", "gftt"}
+
+
+def test_stage_ranges_only_while_profiling(footage):
+    """The step's stage ranges reach the profiler only while
+    ``stage_profile.enabled`` is set, and then every stage shows once per
+    ORB_FULL_LOCK frame."""
+    from video_stabilization_tpu_torch.utils import stage_profile
+
+    ts = TStabilizer(config_from_fields(small_config()), StabilizationMode.ORB_FULL_LOCK,
+                     device="cpu")
+    seen = {}
+    for on in (False, True):
+        stage_profile.enabled = on
+        try:
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                for frame in footage[:2]:
+                    ts.stabilize_frame(frame)
+        finally:
+            stage_profile.enabled = False
+        seen[on] = {e.key[6:]: e.count for e in prof.key_averages()
+                    if e.key.startswith("stage:")}
+    assert seen[False] == {}
+    assert seen[True] == {name: 2 for name in STAGES}

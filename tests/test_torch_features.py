@@ -20,6 +20,7 @@ from video_stabilization_tpu.ops.lk_dense import lk_track_dense as j_lk
 from video_stabilization_tpu.ops.pyramid import build_pyramid as j_pyr
 from video_stabilization_tpu.sim import (
     DEFAULT_APP_PARAMS, make_default_texture, render_frame, shake_trajectory)
+from video_stabilization_tpu_torch import config as tconfig
 from video_stabilization_tpu_torch.motion.ransac import estimate_similarity_ransac as t_ransac
 from video_stabilization_tpu_torch.ops.gftt import good_features_to_track as t_gftt
 from video_stabilization_tpu_torch.ops.gftt import min_eig_response as t_min_eig
@@ -58,7 +59,7 @@ def test_min_eig_response(grays, i):
 def test_cell_gftt_same_corners(grays, i):
     cfg = GFTTConfig(max_features=256)
     a = j_gftt(jnp.asarray(grays[i]), cfg)
-    b = t_gftt(torch.tensor(grays[i]), cfg)
+    b = t_gftt(torch.tensor(grays[i]), tconfig.GFTTConfig(max_features=256))
     same = (np.all(np.asarray(a.points) == b.points.numpy(), -1)
             & (np.asarray(a.mask) == b.mask.numpy()))
     assert same.mean() >= 0.99
@@ -77,7 +78,7 @@ def test_lk_track_dense(grays, pair):
                jnp.asarray(pts), jnp.asarray(mask), config=lk_cfg)
     tb = t_lk(t_pyr(torch.tensor(grays[pair[0]]), 3),
               t_pyr(torch.tensor(grays[pair[1]]), 3),
-              torch.tensor(pts), torch.tensor(mask), lk_cfg)
+              torch.tensor(pts), torch.tensor(mask), tconfig.LKConfig())
     js, ts = np.asarray(ja.status), tb.status.numpy()
     assert js.sum() > 50
     assert (js == ts).mean() >= 0.98
@@ -86,5 +87,6 @@ def test_lk_track_dense(grays, pair):
 
     cfg = RansacConfig(num_hypotheses=128)
     hj = j_ransac(jnp.asarray(pts), ja.points, ja.status, jax.random.key(1), cfg).h
-    ht = t_ransac(torch.tensor(pts), tb.points, tb.status, prng.key(1), cfg).h
+    ht = t_ransac(torch.tensor(pts), tb.points, tb.status, prng.key(1),
+                  tconfig.RansacConfig(num_hypotheses=128)).h
     assert corner_drift(np.asarray(hj, float), ht.double().numpy()) < 0.05

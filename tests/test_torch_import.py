@@ -10,8 +10,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from video_stabilization_tpu.config import (
-    GFTTConfig, LKConfig, RansacConfig, StabilizationMode, StabilizerConfig)
+from video_stabilization_tpu_torch.config import (
+    ECCConfig, GFTTConfig, LKConfig, RansacConfig, StabilizationMode, StabilizerConfig)
 from video_stabilization_tpu_torch.engine import Stabilizer
 
 REPO = Path(__file__).resolve().parents[1]
@@ -24,11 +24,21 @@ def run_python(code: str, env_extra=None) -> subprocess.CompletedProcess:
 
 
 def test_port_imports_without_jax():
+    """Every module of the port, and chip_smoke.py, load neither JAX nor any
+    module of the JAX package."""
     proc = run_python(
-        "import sys\n"
-        "import video_stabilization_tpu_torch.engine\n"
-        "import video_stabilization_tpu_torch.ops, video_stabilization_tpu_torch.sim\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "import importlib, pkgutil, sys\n"
+        "import video_stabilization_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.startswith('jax')\n"
+        "             or m == 'video_stabilization_tpu'\n"
+        "             or m.startswith('video_stabilization_tpu.'))\n"
+        "assert not bad, bad\n"
+        "assert 'video_stabilization_tpu_torch.ops.fast' in names, names\n"
+        "assert 'video_stabilization_tpu_torch.engine.lock' in names, names\n"
         "print('ok')")
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
@@ -42,6 +52,9 @@ def test_kernel_module_imports_without_nvcc_or_gpu():
         "x = torch.rand(1, 8, 9)\n"
         "out = aw.resample(x, torch.tensor([1.0, 0.0, 0.5]), 8, 0)\n"
         "assert out.shape == (1, 8, 9) and aw._lib is None and aw.launches == 0\n"
+        "from video_stabilization_tpu_torch.ops import fast\n"
+        "score, _ = fast.fast_score(torch.rand(16, 20) * 255, 20.0)\n"
+        "assert score.shape == (16, 20) and fast._lib is None and fast.launches == 0\n"
         "print('ok')",
         env_extra={"PATH": "/nonexistent", "CUDA_HOME": "/nonexistent"})
     assert proc.returncode == 0, proc.stderr
@@ -61,18 +74,44 @@ def test_cuda_device_raises_without_a_card():
 
 
 def test_device_is_explicit():
-    with pytest.raises(TypeError):
-        Stabilizer(small_cfg())           # no implicit default device
+    """The card by default: with none, asking for it raises naming CUDA; the
+    CPU only when the caller names it."""
+    if torch.cuda.is_available():
+        assert Stabilizer(small_cfg()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Stabilizer(small_cfg())
+    assert Stabilizer(small_cfg(), device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("mode", [StabilizationMode.ORB_FULL_LOCK,
                                   StabilizationMode.SIFT_FULL_LOCK])
 def test_registration_locks_not_ported(mode):
-    with pytest.raises(NotImplementedError, match="Queue 1 items 11-12"):
+    """The ORB lock runs; the SIFT lock still raises naming its item."""
+    import numpy as np
+
+    if mode == StabilizationMode.ORB_FULL_LOCK:
+        stab = Stabilizer(small_cfg(), mode, device="cpu")
+        stab.stabilize_frame(np.full((120, 160, 3), 7, np.uint8))
+        assert bool(stab.carry.orb_ref.is_set)
+        stab.set_stabilization_mode(StabilizationMode.GLOBAL_SMOOTHING)
+        stab.set_stabilization_mode(mode)
+        assert not bool(stab.carry.orb_ref.is_set)
+        return
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         Stabilizer(small_cfg(), mode, device="cpu")
     stab = Stabilizer(small_cfg(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 items 11-12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         stab.set_stabilization_mode(mode)
+
+
+def test_ecc_refused_by_the_lock():
+    import numpy as np
+
+    stab = Stabilizer(small_cfg(ecc=ECCConfig(enabled=True)),
+                      StabilizationMode.ORB_FULL_LOCK, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        stab.stabilize_frame(np.zeros((120, 160, 3), np.uint8))
 
 
 @pytest.mark.parametrize("kw,match", [

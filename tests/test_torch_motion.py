@@ -6,10 +6,11 @@ import numpy as np
 import pytest
 import torch
 
-from video_stabilization_tpu.config import RansacConfig
+from video_stabilization_tpu.config import RansacConfig, StabilizerConfig
 from video_stabilization_tpu.motion import homography as jh
 from video_stabilization_tpu.motion.ransac import estimate_similarity_ransac as j_ransac
 from video_stabilization_tpu.motion.similarity import fit_similarity_masked as j_fit
+from video_stabilization_tpu_torch.config import config_from_fields
 from video_stabilization_tpu_torch.motion import homography as th
 from video_stabilization_tpu_torch.motion.ransac import estimate_similarity_ransac as t_ransac
 from video_stabilization_tpu_torch.motion.similarity import fit_similarity_masked as t_fit
@@ -113,7 +114,7 @@ def test_ransac_same_hypotheses(seed, key):
     tkey = prng.fold_in(prng.key(key), 2 * seed)
     jr = j_ransac(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(mask), jkey, cfg)
     tr = t_ransac(torch.from_numpy(src), torch.from_numpy(dst), torch.from_numpy(mask),
-                  tkey, cfg)
+                  tkey, config_from_fields(StabilizerConfig(ransac=cfg)).ransac)
     assert bool(jr.valid) and bool(tr.valid)
     np.testing.assert_array_equal(np.asarray(jr.inliers), tr.inliers.numpy())
     assert int(jr.num_inliers) == int(tr.num_inliers)

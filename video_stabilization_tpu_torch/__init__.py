@@ -3,20 +3,24 @@
 The same layout and public names as the JAX package, for one NVIDIA Hopper
 GPU: plain tensor code is PyTorch, and the JAX package's Pallas kernels
 become hand-written CUDA kernels (``csrc/``), each with a plain PyTorch
-version that runs on the CPU.  Both packages are driven by the same frozen
-``video_stabilization_tpu.config.StabilizerConfig``; importing that module
-loads no JAX, and neither does this package.
+version that runs on the CPU.  The port shares no module with the JAX
+package and imports no JAX: ``config.py`` is its own copy of the JAX
+package's configuration, and ``config_from_fields`` carries a configuration
+across.
 
 Subpackages
 -----------
 - ``motion`` : homography decompose/compose, similarity fitting, RANSAC.
-- ``ops``    : image ops, pyramid, gradients, GFTT, dense LK, warps.
-- ``engine`` : carry, per-frame step, smoothing, ``Stabilizer``.
+- ``ops``    : image ops, pyramid, gradients, GFTT, dense LK, warps, the
+  registration filters, FAST, ORB, patch extraction, Hamming matching.
+- ``engine`` : carry, per-frame step, smoothing, registration lock,
+  ``Stabilizer``.
 - ``sim``    : the floor-texture camera simulator with analytic truth.
 - ``utils``  : the threefry PRNG and the CUDA kernel build helper.
 """
 
-from video_stabilization_tpu.config import (  # noqa: F401
+from video_stabilization_tpu_torch.config import (  # noqa: F401
     StabilizationMode,
     StabilizerConfig,
+    config_from_fields,
 )

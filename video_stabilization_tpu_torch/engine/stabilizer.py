@@ -8,7 +8,8 @@ motion model with dense LK, cell GFTT and batched-hypothesis RANSAC:
   3. RANSAC similarity + isotropic-scale removal -> inter-frame T
   4. ring updates (frames circular, transforms rolled)
   5. smoothing homography Q
-  6. accumulated-lock homography (anchor / advance / invert)
+  6. lock homography: accumulated (anchor / advance / invert) or the ORB
+     registration lock against the captured reference (``engine/lock.py``)
   7. rotation split into translation and rotation locks
   8. mode switch
   9. translation rescale to full resolution, warp of the presentation frame
@@ -16,12 +17,12 @@ motion model with dense LK, cell GFTT and batched-hypothesis RANSAC:
 
 The mode is a host ``int`` (``Stabilizer`` keeps it, the carry mirrors it as
 a tensor), so branching on it never waits for the device.  The JAX
-package's data-dependent ``lax.cond`` on small 3x3 values become
+package's data-dependent ``lax.cond`` on small values become
 ``torch.where`` over both sides.  The only host reads of a step are the
 five warp-envelope predicates (``ops/affine_warp.py``).
 
-Not ported yet, and refused with ``NotImplementedError``: the ORB and SIFT
-locks, the non-rigid motion models, the host-estimator split
+Not ported yet, and refused with ``NotImplementedError``: the SIFT lock,
+ECC refinement, the non-rigid motion models, the host-estimator split
 (``ext_motion``) and the ``reference_compat`` referee paths.
 """
 
@@ -33,7 +34,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from video_stabilization_tpu.config import StabilizationMode, StabilizerConfig
+from video_stabilization_tpu_torch.config import StabilizationMode, StabilizerConfig
+from video_stabilization_tpu_torch.engine.lock import orb_lock
 from video_stabilization_tpu_torch.engine.smoothing import smoothing_homography
 from video_stabilization_tpu_torch.engine.state import EngineCarry, init_carry
 from video_stabilization_tpu_torch.motion.homography import (
@@ -50,6 +52,7 @@ from video_stabilization_tpu_torch.ops.lk import lk_track
 from video_stabilization_tpu_torch.ops.pyramid import build_pyramid
 from video_stabilization_tpu_torch.ops.warp import _inv3x3
 from video_stabilization_tpu_torch.utils import prng
+from video_stabilization_tpu_torch.utils.stage_profile import stage
 
 ACCUM_MODES = (
     StabilizationMode.ACCUMULATED_FULL_LOCK,
@@ -60,10 +63,9 @@ ACCUM_MODES = (
 
 def check_mode(mode: int) -> None:
     """Raise for the modes the port does not run yet."""
-    if int(mode) in (StabilizationMode.ORB_FULL_LOCK, StabilizationMode.SIFT_FULL_LOCK):
+    if int(mode) == StabilizationMode.SIFT_FULL_LOCK:
         raise NotImplementedError(
-            f"{StabilizationMode(int(mode)).name} is not ported yet "
-            "(ROADMAP Queue 1 items 11-12)")
+            "SIFT_FULL_LOCK is not ported yet (ROADMAP Queue 1 item 12)")
 
 
 def check_config(config: StabilizerConfig) -> None:
@@ -137,17 +139,21 @@ def stabilize_step(
     center = torch.tensor([ww / 2.0, wh / 2.0]).to(dev, non_blocking=True)
     scale_factor = torch.tensor(config.scale_factor).to(dev, non_blocking=True)
     eye = torch.eye(3, **f32)
-    k_ransac, _ = frame_keys(carry.key, carry.n)
+    k_ransac, k_lock = frame_keys(carry.key, carry.n)
 
     # 1. working-res gray + pyramid (resize before gray, as the reference)
-    gray = bgr_to_gray(resize_bilinear(frame.float(), wh, ww))
-    pyr = build_pyramid(gray, config.lk.pyramid_levels)
+    with stage("gray"):
+        gray = bgr_to_gray(resize_bilinear(frame.float(), wh, ww))
+    with stage("pyramid"):
+        pyr = build_pyramid(gray, config.lk.pyramid_levels)
 
     # 2-3. track + inter-frame motion
-    tracked = lk_track(carry.pyr_prev, pyr, carry.corners_prev, carry.corners_mask,
-                       config.lk)
-    ransac, t_rigid = _fit_inter_frame(carry.corners_prev, tracked.points,
-                                       tracked.status, k_ransac, config, center)
+    with stage("lk_track"):
+        tracked = lk_track(carry.pyr_prev, pyr, carry.corners_prev, carry.corners_mask,
+                           config.lk)
+    with stage("inter_frame_fit"):
+        ransac, t_rigid = _fit_inter_frame(carry.corners_prev, tracked.points,
+                                           tracked.status, k_ransac, config, center)
     is_first = carry.n == 0
     have_prev = carry.n >= 1
     t_new = torch.where(have_prev & ransac.valid, t_rigid, eye)
@@ -172,26 +178,35 @@ def stabilize_step(
     pres_frame = frames.index_select(0, pres_slot)[0].float()
 
     # 5. smoothing
-    h_smooth = smoothing_homography(transforms, tvalid, pres, num_tr,
-                                    config.reference_compat)
+    with stage("smoothing"):
+        h_smooth = smoothing_homography(transforms, tvalid, pres, num_tr,
+                                        config.reference_compat)
 
-    # 6. accumulated lock: anchor on entry, then advance by the transform
-    # into the new presentation frame
-    if mode in ACCUM_MODES:
-        advanced = (n_after - 1 - future) >= 1
-        tr_slot = ((transforms.shape[0] - num_tr) + pres - 1).clamp(0, w - 2)
-        t_pres = transforms.index_select(0, tr_slot.long().view(1))[0]
-        advanced_h = torch.where(advanced, torch.matmul(t_pres, carry.accum_h),
-                                 carry.accum_h)
-        accum_h = torch.where(carry.accum_active, advanced_h, eye)
-        accum_active = torch.ones((), dtype=torch.bool, device=dev)
+    # 6. lock: the ORB registration lock, or the accumulated lock (anchor on
+    # entry, then advance by the transform into the new presentation frame)
+    orb_ref, lock_prev_h = carry.orb_ref, carry.lock_prev_h
+    lock_matches = torch.zeros((), dtype=torch.int32, device=dev)
+    accum_h = eye
+    accum_active = torch.zeros((), dtype=torch.bool, device=dev)
+    if mode == StabilizationMode.ORB_FULL_LOCK:
+        with stage("orb_lock"):
+            res = orb_lock(pres_frame, carry.orb_ref, carry.lock_prev_h, k_lock, config)
+        h_lock, orb_ref, lock_prev_h, lock_matches = (res.h_lock, res.ref, res.prev_h,
+                                                      res.n_matches)
     else:
-        accum_h = eye
-        accum_active = torch.zeros((), dtype=torch.bool, device=dev)
-    h_lock = _inv3x3(accum_h)
+        if mode in ACCUM_MODES:
+            advanced = (n_after - 1 - future) >= 1
+            tr_slot = ((transforms.shape[0] - num_tr) + pres - 1).clamp(0, w - 2)
+            t_pres = transforms.index_select(0, tr_slot.long().view(1))[0]
+            advanced_h = torch.where(advanced, torch.matmul(t_pres, carry.accum_h),
+                                     carry.accum_h)
+            accum_h = torch.where(carry.accum_active, advanced_h, eye)
+            accum_active = torch.ones((), dtype=torch.bool, device=dev)
+        h_lock = _inv3x3(accum_h)
 
     # 7. rotation split
-    lock_params, lock_ok = decompose_homography(h_lock, center)
+    with stage("rotation_split"):
+        lock_params, lock_ok = decompose_homography(h_lock, center)
     h_lock = torch.where(lock_ok, h_lock, eye)
     h_translation_lock = torch.matmul(_rotation_about(lock_params.theta, center), h_lock)
     h_rotation_lock = _rotation_about(-lock_params.theta, center)
@@ -200,6 +215,7 @@ def stabilize_step(
     h_stabilize = {
         StabilizationMode.GLOBAL_SMOOTHING: h_smooth,
         StabilizationMode.ACCUMULATED_FULL_LOCK: h_lock,
+        StabilizationMode.ORB_FULL_LOCK: h_lock,
         StabilizationMode.TRANSLATION_LOCK: h_translation_lock,
         StabilizationMode.ROTATION_LOCK: h_rotation_lock,
     }[StabilizationMode(mode)]
@@ -208,8 +224,9 @@ def stabilize_step(
     h_scaled = h_stabilize.clone()
     h_scaled[0:2, 2] = h_stabilize[0:2, 2] / scale_factor
     avg_color = 0.5 * pres_frame.mean(dim=(0, 1))
-    warped = warp_affine(pres_frame, h_scaled, border_value=avg_color,
-                         projective_fallback=config.warp_projective_fallback)
+    with stage("warp"):
+        warped = warp_affine(pres_frame, h_scaled, border_value=avg_color,
+                             projective_fallback=config.warp_projective_fallback)
     env_viol = carry.envelope_violations + (~affine_envelope_ok(h_scaled)).to(torch.int32)
     warped_u8 = torch.clamp(torch.round(warped), 0, 255).to(torch.uint8)
 
@@ -218,7 +235,8 @@ def stabilize_step(
     out_valid = torch.ones((), dtype=torch.bool, device=dev)
 
     # 10. features for the next frame
-    corners = good_features_to_track(gray, config.gftt)
+    with stage("gftt"):
+        corners = good_features_to_track(gray, config.gftt)
 
     new_carry = EngineCarry(
         frames=frames,
@@ -231,12 +249,12 @@ def stabilize_step(
         mode=carry.mode,
         accum_h=accum_h,
         accum_active=accum_active,
-        orb_ref=carry.orb_ref,
+        orb_ref=orb_ref,
         sift_ref=carry.sift_ref,
-        lock_prev_h=carry.lock_prev_h,
+        lock_prev_h=lock_prev_h,
         last_h=h_stabilize,
         last_inliers=ransac.num_inliers,
-        last_lock_matches=torch.zeros((), dtype=torch.int32, device=dev),
+        last_lock_matches=lock_matches,
         envelope_violations=env_viol,
         key=carry.key,
     )
@@ -244,12 +262,14 @@ def stabilize_step(
 
 
 class Stabilizer:
-    """One stream: construct with a config and a device, feed frames one at
-    a time, switch modes at runtime (the reference's public API)."""
+    """One stream: construct with a config, feed frames one at a time,
+    switch modes at runtime (the reference's public API).  It runs on the
+    CUDA card unless ``device`` names the CPU; with no card, asking for CUDA
+    raises rather than falls back."""
 
     def __init__(self, config: StabilizerConfig,
                  mode: StabilizationMode = StabilizationMode.GLOBAL_SMOOTHING,
-                 seed: int = 0, *, device):
+                 seed: int = 0, *, device="cuda"):
         # f32 everywhere: TF32 would cost three decimal digits in the filters
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

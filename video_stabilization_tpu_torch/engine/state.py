@@ -17,12 +17,13 @@ from typing import Tuple
 
 import torch
 
-from video_stabilization_tpu.config import StabilizerConfig
+from video_stabilization_tpu_torch.config import StabilizerConfig
 
 
 @dataclass
 class RegistrationRef:
-    """Reference-frame features of the ORB/SIFT locks (empty in this port)."""
+    """Reference-frame features of the ORB/SIFT locks (the SIFT one stays
+    empty in this port)."""
 
     points: torch.Tensor   # (N, 2) f32
     desc: torch.Tensor     # (N, D) int8 (ORB) / f32 (SIFT)

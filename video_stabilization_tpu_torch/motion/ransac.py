@@ -13,7 +13,7 @@ from dataclasses import dataclass
 
 import torch
 
-from video_stabilization_tpu.config import RansacConfig
+from video_stabilization_tpu_torch.config import RansacConfig
 from video_stabilization_tpu_torch.motion.homography import identity_homography
 from video_stabilization_tpu_torch.motion.similarity import (
     fit_similarity_masked,

@@ -14,7 +14,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from video_stabilization_tpu.config import GFTTConfig
+from video_stabilization_tpu_torch.config import GFTTConfig
 from video_stabilization_tpu_torch.ops.gradients import box_sum, sobel_xy
 
 
@@ -44,9 +44,10 @@ def _nms3(resp: torch.Tensor) -> torch.Tensor:
 
 
 def top_k_stable(x: torch.Tensor, k: int):
-    """(values, indices) of the k largest, ties to the lower index."""
-    vals, idx = torch.sort(x, descending=True, stable=True)
-    return vals[:k], idx[:k]
+    """(values, indices) of the k largest along the last axis, ties to the
+    lower index (``lax.top_k``'s order)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 def good_features_to_track(img: torch.Tensor, config: GFTTConfig = GFTTConfig(),

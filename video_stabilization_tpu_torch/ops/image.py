@@ -1,9 +1,10 @@
-"""Colour conversion and bilinear resize (OpenCV conventions).
+"""Colour conversion, bilinear and nearest resize (OpenCV conventions).
 
 Port of ``video_stabilization_tpu/ops/image.py`` (``bgr_to_gray``,
-``resize_bilinear``): BT.601 gray, and cv2 INTER_LINEAR sampling at
-``(dst + 0.5)·scale − 0.5`` clamped to the border.  Integer downscales take
-the strided-slice path (1080 -> 360 is k = 3: a pure stride).
+``resize_bilinear``, ``resize_nearest``): BT.601 gray, cv2 INTER_LINEAR
+sampling at ``(dst + 0.5)·scale − 0.5`` clamped to the border, and
+INTER_NEAREST at ``floor(dst·scale)``.  Integer downscales take the
+strided-slice path (1080 -> 360 is k = 3: a pure stride).
 """
 
 from __future__ import annotations
@@ -52,11 +53,30 @@ def _resample_linear_1d(img: torch.Tensor, out_size: int, axis: int) -> torch.Te
     return a * (1.0 - f) + b * f
 
 
+def _hw_axes(img: torch.Tensor) -> tuple[int, int]:
+    has_c = img.dim() >= 3 and img.shape[-1] in (1, 3, 4) and img.shape[-2] > 4
+    return (-3, -2) if has_c else (-2, -1)
+
+
 def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Bilinear resize of (..., H, W) or (..., H, W, C) images to float32."""
-    has_c = img.dim() >= 3 and img.shape[-1] in (1, 3, 4) and img.shape[-2] > 4
-    h_axis = -3 if has_c else -2
-    w_axis = -2 if has_c else -1
+    h_axis, w_axis = _hw_axes(img)
     img = img.float()
     img = _resample_linear_1d(img, out_h, h_axis)
     return _resample_linear_1d(img, out_w, w_axis)
+
+
+def _nearest_index(dst_size: int, src_size: int, device) -> torch.Tensor:
+    # float32 product, as the JAX package computes it, then truncation
+    scale = torch.tensor(src_size / dst_size, dtype=torch.float32)
+    pos = torch.arange(dst_size, dtype=torch.float32, device=device) * scale
+    return pos.to(torch.int64).clamp(0, src_size - 1)
+
+
+def resize_nearest(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Nearest-neighbour resize of (..., H, W) or (..., H, W, C) images
+    (cv2 INTER_NEAREST: source index ``floor(dst · src / dst_size)``)."""
+    h_axis, w_axis = _hw_axes(img)
+    iy = _nearest_index(out_h, img.shape[h_axis], img.device)
+    ix = _nearest_index(out_w, img.shape[w_axis], img.device)
+    return img.index_select(img.dim() + h_axis, iy).index_select(img.dim() + w_axis, ix)

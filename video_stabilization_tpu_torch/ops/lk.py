@@ -12,7 +12,7 @@ from typing import Sequence
 
 import torch
 
-from video_stabilization_tpu.config import LKConfig
+from video_stabilization_tpu_torch.config import LKConfig
 
 
 @dataclass

@@ -24,7 +24,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from video_stabilization_tpu.config import LKConfig
+from video_stabilization_tpu_torch.config import LKConfig
 from video_stabilization_tpu_torch.motion.similarity import fit_similarity_masked
 from video_stabilization_tpu_torch.ops.affine_warp import warp_affine
 from video_stabilization_tpu_torch.ops.gradients import scharr_xy

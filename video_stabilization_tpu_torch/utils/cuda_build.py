@@ -2,7 +2,8 @@
 
 The kernels have a plain C interface: ``nvcc`` compiles each ``.cu`` file on
 its own (seconds, no PyTorch headers) into ``build/kernels/`` at the root of
-the checkout, and ``ctypes`` loads it.  The library's name carries a hash of
+the checkout, and ``ctypes`` loads it.  :func:`build_kernels` starts one
+``nvcc`` per source, all at once.  The library's name carries a hash of
 its source, so an edited kernel is rebuilt and an unchanged one is reused.
 
 Nothing here runs at import time: a kernel module calls :func:`load_kernel`
@@ -41,27 +42,47 @@ def _nvcc() -> str:
                        "with the CUDA toolkit (PATH or CUDA_HOME)")
 
 
-def load_kernel(name: str) -> ctypes.CDLL:
-    """Return the loaded library built from ``csrc/<name>.cu``.
-
-    Builds it first if ``build/kernels/`` has no library for this source;
-    the build time lands in ``build_seconds[name]`` (0.0 when reused)."""
-    if name in _loaded:
-        return _loaded[name]
+def _lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_kernels(names) -> None:
+    """Build the libraries of ``csrc/<name>.cu`` for every name that has
+    none yet: one ``nvcc`` per source, all started together.  Each build's
+    wall time lands in ``build_seconds[name]`` (0.0 when reused)."""
     t0 = time.perf_counter()
-    if not lib_path.exists():
+    running = {}
+    for name in names:
+        build_seconds[name] = 0.0
+        lib_path = _lib_path(name)
+        if lib_path.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True),
+                         tmp, lib_path)
+    failed = []
+    for name, (proc, tmp, lib_path) in running.items():
+        out, err = proc.communicate()
+        build_seconds[name] = time.perf_counter() - t0
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib_path)
-    build_seconds[name] = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(lib_path))
-    _loaded[name] = lib
-    return lib
+            failed.append(f"nvcc failed for {name}.cu:\n{out}\n{err}")
+        else:
+            os.replace(tmp, lib_path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load_kernel(name: str) -> ctypes.CDLL:
+    """Return the loaded library built from ``csrc/<name>.cu``, building it
+    first if ``build/kernels/`` has none for this source."""
+    if name not in _loaded:
+        if not _lib_path(name).exists():
+            build_kernels([name])
+        _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
+    return _loaded[name]
