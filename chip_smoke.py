@@ -8,21 +8,26 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    the card's name and power limit from nvidia-smi;
 2. build: compile every kernel of ``csrc/``, one nvcc per source, all at
    once (seconds each);
-3. kernels vs plain: the resample kernel and the full 2-pass warp at every
-   warp shape of configs 1 and 3, and the FAST kernel at the ten ORB level shapes of a
-   360x640 working image (random integer images and the real level images
-   of one rendered 720x1280 frame), against their plain PyTorch versions on
-   the card, with median CUDA-event times;
+3. kernels vs plain: the fused warp kernel at every warp shape of configs
+   1 and 3, on (H, W, C) and planar memory, inside the rotation envelope
+   and outside it (the gather branch on the device), and the FAST-levels
+   kernel on the ten ORB level shapes of a 360x640 working image at once
+   (random integer images and the real level images of one rendered
+   720x1280 frame), against their plain PyTorch versions on the card
+   (exact), with median CUDA-event times; ``grid_sample`` at 3x1080x1920
+   as a yardstick for a one-pass warp of the same bytes;
 4. the config-1 slice: bench config 1 (1080x1920 frames, working height
    360, window 30 + 1 + 15) through ``Stabilizer.stabilize_frame`` on footage
    rendered on the card by the port's simulator; GLOBAL_SMOOTHING, then
-   ACCUMULATED_FULL_LOCK; launch counts, corner drift against the analytic
+   ACCUMULATED_FULL_LOCK; launch counts, the device's count of warps
+   outside the envelope (read once), host syncs of one frame under
+   ``torch.cuda.set_sync_debug_mode``, corner drift against the analytic
    inter-frame motion, jitter reduction, ms/frame;
 5. the ORB slice: bench config 3 (720x1280 frames, working height 360, the
    default ORB settings, window 30 + 1 + 15) in ORB_FULL_LOCK through
-   ``Stabilizer.stabilize_frame``; launch counts of both kernels, the
-   captured reference, lock matches, jitter against the raw footage and an
-   ideal lock, ms/frame;
+   ``Stabilizer.stabilize_frame``; launch counts of both kernels, host
+   syncs of one frame, the captured reference, lock matches, jitter against
+   the raw footage and an ideal lock, ms/frame;
 6. reference: the step on a small clip, on the card and on the CPU (plain
    versions), frame for frame, in GLOBAL_SMOOTHING and in ORB_FULL_LOCK.
 
@@ -38,6 +43,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -48,24 +54,30 @@ _LK_WARPS = {(1, 90, 160): 1, (1, 180, 320): 1, (1, 360, 640): 2}
 WARPS_PER_FRAME = {"config1": {**_LK_WARPS, (3, 1080, 1920): 1},
                    "config3": {**_LK_WARPS, (3, 720, 1280): 1}}
 SHAPES = sorted({s for warps in WARPS_PER_FRAME.values() for s in warps})
-LAUNCHES_PER_FRAME = {k: 2 * sum(v.values()) for k, v in WARPS_PER_FRAME.items()}
-# FAST runs once per ORB pyramid level of the 360x640 working image
+# one launch per warp, whichever branch the device takes
+LAUNCHES_PER_FRAME = {k: sum(v.values()) for k, v in WARPS_PER_FRAME.items()}
+# one FAST launch per ORB frame covers the ten pyramid levels of the
+# 360x640 working image
 FAST_SHAPES = ((360, 640), (300, 533), (250, 444), (208, 370), (174, 309),
                (145, 257), (121, 214), (100, 179), (84, 149), (70, 124))
-KERNEL_TOL = 1e-3        # max |kernel - plain| on 0-255 content, same card
-FAST_TOL = 0.0           # the FAST kernel equals its plain version bit for bit
+FAST_LAUNCHES_PER_FRAME = 1
+FAST_THRESHOLD = 20.0    # ORBConfig defaults
+EDGE_THRESHOLD = 31
+KERNEL_TOL = 0.0         # the warp kernel equals its plain version bit for bit
+FAST_TOL = 0.0           # so does the FAST kernel
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 # operations per output pixel: one resample pass (position, floor, two
 # guarded taps, lerp) and the border test fused into pass H; FAST (16
-# margins, 2 x 64 arc min/max, 15 maxima of the bright arcs and 15 minima of
-# the dark ones, one negation (max_k -a_k = -min_k a_k), the final maximum
-# and the threshold test)
+# margins, 2 x 57 minima and maxima for the best 9-arc of each polarity by
+# block prefix and suffix extrema, one negation, the final maximum and the
+# threshold test: 133), its 3x3 NMS (8 maxima, the two tests, the select:
+# 11) and the edge mask (4 comparisons, the select: 5)
 RESAMPLE_OPS = 12
 BORDER_OPS = 10
-FAST_OPS = 177
+FAST_OPS = 133 + 11 + 5
 DRIFT_TOL = 2.0          # px mean corner drift at working res
 SMOOTH_JITTER = 0.75     # stabilized / raw central-crop jitter
 LOCK_JITTER = 0.4        # accumulated lock / raw jitter
@@ -89,6 +101,7 @@ TRANSFORMS = {
     "rot0.5": rigid(0.5, 1.3, -0.7),
     "rot3": rigid(3.0, -2.6, 1.9),
     "rot8": rigid(8.0, 0.4, -3.3),
+    "rot12": rigid(12.0, 2.1, -1.4),     # outside the envelope: the gather
 }
 
 
@@ -135,62 +148,115 @@ def time_ms(fn, reps: int = 20, inner: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def warp_input(shape, layout, rng, dev) -> torch.Tensor:
+    """Random 0-255 content as the warp takes it: "hwc" an (H, W, C) frame
+    ((H, W) for one channel, as dense LK passes it), "planar" an (H, W, C)
+    view of (C, H, W) memory ((H, W, 1) for one channel)."""
+    c, h, w = shape
+    x = torch.from_numpy(rng.uniform(0, 255, shape).astype(np.float32)).to(dev)
+    if layout == "planar":
+        return x.permute(1, 2, 0)
+    return x[0] if c == 1 else x.permute(1, 2, 0).contiguous()
+
+
+def device_ms(fn, n: int = 40) -> float:
+    """Device time per call of ``fn``: median of 15 replays of a CUDA graph
+    of ``n`` calls, CUDA events (the kernels without the host's launch)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(15):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
 def phase_kernel(dev, rng) -> dict:
-    """Kernel vs plain version at every warp shape of both main paths;
-    returns the error, and per configuration the per-frame kernel / plain ms
-    (warps weighted by WARPS_PER_FRAME) and bound."""
+    """The fused warp kernel vs its plain version at every warp shape of
+    both main paths, both layouts and every transform (exact); returns the
+    error, and per configuration the per-frame kernel / plain ms (warps
+    weighted by WARPS_PER_FRAME) and bound."""
+    import torch.nn.functional as F
+
     from video_stabilization_tpu_torch.ops import affine_warp as aw
     from video_stabilization_tpu_torch.ops.warp import _inv3x3
 
     max_err = 0.0
     times = {}
+    counter = aw.fallback_counter(dev)
     for shape in SHAPES:
-        planes = torch.from_numpy(rng.uniform(0, 255, shape).astype(np.float32)).to(dev)
-        border = torch.from_numpy(rng.uniform(0, 255, shape[0]).astype(np.float32)).to(dev)
-        for name, h in TRANSFORMS.items():
-            hinv = _inv3x3(torch.from_numpy(h).to(dev))
-            p_v, p_h = aw._pass_params(hinv)
-            # each pass alone, then the whole 2-pass warp with its border
-            for x, abg, n_out, axis in ((planes, p_v, shape[1], 0),
-                                        (planes, p_h, shape[2], 1)):
-                k = aw.resample(x, abg, n_out, axis)
-                p = aw.resample_plain(x, abg, n_out, axis)
-                max_err = max(max_err, float((k - p).abs().max()))
-            k = aw.warp_planes_2pass(planes, hinv, border)
-            p = aw.warp_planes_2pass(planes, hinv, border, aw.resample_plain)
-            err = float((k - p).abs().max())
-            max_err = max(max_err, err)
-            if not err <= KERNEL_TOL:
-                raise AssertionError(f"kernel vs plain {shape} {name}: max abs {err}")
-        # time the two resample passes alone (parameters prepared outside)
-        hinv = _inv3x3(torch.from_numpy(TRANSFORMS["rot3"]).to(dev))
-        p_v, p_h = aw._pass_params(hinv)
-        h23 = hinv[:2].contiguous()
+        # the main path's border: the frame's mean colour on the card for the
+        # output warp, 0.0 by value for dense LK
+        border = (torch.from_numpy(rng.uniform(0, 255, 3).astype(np.float32)).to(dev)
+                  if shape[0] == 3 else 0.0)
+        for layout in ("hwc", "planar"):
+            src = warp_input(shape, layout, rng, dev)
+            for name, m in TRANSFORMS.items():
+                h = torch.from_numpy(m).to(dev)
+                counter.zero_()
+                k = aw.warp_affine(src, h, border)
+                p = aw.warp_affine_plain(src, h, border)
+                err = float((k - p).abs().max())
+                max_err = max(max_err, err)
+                gathered = int(counter)
+                inside = bool(aw.affine_envelope_ok(h))
+                if not err <= KERNEL_TOL or gathered != (0 if inside else 1):
+                    raise AssertionError(f"warp kernel vs plain {shape} {layout} {name}: "
+                                         f"max abs {err}, gather count {gathered}")
+        # time one warp as the main path calls it, and the launch alone
+        # (inverse map prepared outside the timed call)
+        src = warp_input(shape, "hwc", rng, dev)
+        h = torch.from_numpy(TRANSFORMS["rot3"]).to(dev)
+        hinv = _inv3x3(h)
+        bt = border if isinstance(border, torch.Tensor) else None
+        bs = 0.0 if bt is not None else border
+        ms = time_ms(lambda: aw._launch(src, hinv, bt, bs, True))
+        dev_ms = device_ms(lambda: aw._launch(src, hinv, bt, bs, True))
+        call_ms = time_ms(lambda: aw.warp_affine(src, h, border))
+        plain_ms = time_ms(lambda: aw.warp_affine_plain(src, h, border))
+        times[shape] = (ms, plain_ms, dev_ms)
+        print(f"warp {shape}: kernel {ms:.4f} ms back to back, {dev_ms:.4f} ms device "
+              f"(CUDA graph), warp_affine call {call_ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"(back to back: median of 20 x 10, CUDA events)", flush=True)
+    print(f"warp kernel vs plain: max abs err {max_err} <= {KERNEL_TOL} over "
+          f"{len(SHAPES)} shapes x 2 layouts x {len(TRANSFORMS)} transforms "
+          f"(rot12 on the device's gather)", flush=True)
 
-        def two_pass(fn):
-            return fn(fn(planes, p_v, shape[1], 0), p_h, shape[2], 1, h23, border)
+    # a one-pass bilinear warp of the same bytes, as a yardstick only: not
+    # the same function (direct bilinear, not the 2-pass result)
+    x = torch.from_numpy(rng.uniform(0, 255, (1, 3, 1080, 1920)).astype(np.float32)).to(dev)
+    theta = torch.from_numpy(TRANSFORMS["rot3"][:2][None]).to(dev)
+    grid = F.affine_grid(theta, list(x.shape), align_corners=True)
+    gs_ms = time_ms(lambda: F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                                          align_corners=True))
+    print(f"yardstick (not the same function): grid_sample bilinear/zeros/align_corners "
+          f"3x1080x1920 {gs_ms:.4f} ms vs the warp kernel {times[(3, 1080, 1920)][0]:.4f} ms",
+          flush=True)
 
-        ms = time_ms(lambda: two_pass(aw.resample))
-        plain_ms = time_ms(lambda: two_pass(aw.resample_plain))
-        times[shape] = (ms, plain_ms)
-        print(f"kernel {shape}: 2 passes {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"(median of 20 x 10 back-to-back, CUDA events)", flush=True)
-    if not max_err <= KERNEL_TOL:
-        raise AssertionError(f"kernel vs plain max abs {max_err} > {KERNEL_TOL}")
-    print(f"kernel vs plain: max abs err {max_err:.3e} <= {KERNEL_TOL} over "
-          f"{len(SHAPES)} shapes x {len(TRANSFORMS)} transforms", flush=True)
     out = {"max_abs_err": max_err}
     for name, warps in WARPS_PER_FRAME.items():
         # least time of one frame's warps: one read of the input and one
-        # write of the output, C·H·W f32 each (a fused 2-pass warp keeps the
-        # intermediate on chip)
+        # write of the output, C·H·W f32 each
         px = sum(n * c * h * w for (c, h, w), n in warps.items())
         out[name] = {"ms": sum(n * times[s][0] for s, n in warps.items()),
                      "plain_ms": sum(n * times[s][1] for s, n in warps.items()),
+                     "device_ms": sum(n * times[s][2] for s, n in warps.items()),
                      **bound_ms(8 * px, (2 * RESAMPLE_OPS + BORDER_OPS) * px)}
-        print(f"kernel {name}: per frame {out[name]['ms']:.4f} ms, plain "
-              f"{out[name]['plain_ms']:.4f} ms, bound {out[name]['bound_ms']:.5f} ms "
-              f"({out[name]['bound_by']}, {px} px)", flush=True)
+        print(f"warp {name}: per frame {out[name]['ms']:.4f} ms back to back, "
+              f"{out[name]['device_ms']:.4f} ms device, plain {out[name]['plain_ms']:.4f} "
+              f"ms, bound {out[name]['bound_ms']:.5f} ms ({out[name]['bound_by']}, "
+              f"{px} px)", flush=True)
     return out
 
 
@@ -218,38 +284,60 @@ def orb_levels(frame: torch.Tensor, cfg) -> list:
 
 
 def phase_fast_kernel(dev, rng, levels) -> dict:
-    """The FAST kernel vs its plain version at the ten level shapes, on
-    random integer images and on the real ``levels`` of one frame: exact
-    equality, and per-frame kernel / plain ms (one launch per level)."""
+    """The FAST-levels kernel vs its plain version on the ten level shapes
+    at once, on random integer images and on the real ``levels`` of one
+    frame: exact equality, and per-frame kernel / plain ms (one launch)."""
     from video_stabilization_tpu_torch.ops import fast
 
-    thr = 20.0
+    if [tuple(x.shape) for x in levels] != list(FAST_SHAPES):
+        raise AssertionError(f"level shapes {[tuple(x.shape) for x in levels]}")
+    noise = [torch.from_numpy(np.round(rng.uniform(0, 255, s)).astype(np.float32)).to(dev)
+             for s in FAST_SHAPES]
     max_err = 0.0
-    ms_frame = plain_ms_frame = 0.0
-    for shape, level in zip(FAST_SHAPES, levels):
-        if tuple(level.shape) != shape:
-            raise AssertionError(f"level shape {tuple(level.shape)} != {shape}")
-        noise = torch.from_numpy(np.round(rng.uniform(0, 255, shape)).astype(np.float32))
-        n_corners = 0
-        for img in (noise.to(dev), level):
-            k, _ = fast.fast_score(img, thr)
-            p, _ = fast.fast_score_plain(img, thr)
-            max_err = max(max_err, float((k - p).abs().max()))
-            n_corners += int((k > 0).sum())
-        ms = time_ms(lambda: fast.fast_score(level, thr))
-        plain_ms = time_ms(lambda: fast.fast_score_plain(level, thr))
-        ms_frame += ms
-        plain_ms_frame += plain_ms
-        print(f"fast {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of "
-              f"20 x 10 back-to-back, CUDA events); {n_corners} corners", flush=True)
+    for kind, imgs in (("random", noise), ("frame", levels)):
+        k = fast.fast_levels(imgs, FAST_THRESHOLD, EDGE_THRESHOLD)
+        p = fast.fast_levels_plain(imgs, FAST_THRESHOLD, EDGE_THRESHOLD)
+        errs = [float((a - b).abs().max()) for a, b in zip(k, p)]
+        max_err = max([max_err] + errs)
+        print(f"fast levels ({kind}): max abs err per level {errs}; "
+              f"{sum(int((a > 0).sum()) for a in k)} keypoint candidates", flush=True)
+    ms = time_ms(lambda: fast.fast_levels(levels, FAST_THRESHOLD, EDGE_THRESHOLD))
+    dev_ms = device_ms(lambda: fast.fast_levels(levels, FAST_THRESHOLD, EDGE_THRESHOLD))
+    plain_ms = time_ms(lambda: fast.fast_levels_plain(levels, FAST_THRESHOLD,
+                                                      EDGE_THRESHOLD))
     if not max_err <= FAST_TOL:
         raise AssertionError(f"fast kernel vs plain max abs {max_err} > {FAST_TOL}")
     px = sum(h * w for h, w in FAST_SHAPES)
     bound = bound_ms(8 * px, FAST_OPS * px)
     print(f"fast vs plain: max abs err {max_err} over {len(FAST_SHAPES)} level shapes x "
-          f"2 images; per frame kernel {ms_frame:.4f} ms, plain {plain_ms_frame:.4f} ms, "
-          f"bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}, {px} px)", flush=True)
-    return {"max_abs_err": max_err, "ms": ms_frame, "plain_ms": plain_ms_frame, **bound}
+          f"2 images; per frame (one launch) kernel {ms:.4f} ms back to back, {dev_ms:.4f} "
+          f"ms device (CUDA graph), plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.5f} "
+          f"ms ({bound['bound_by']}, {px} px)", flush=True)
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+            **bound}
+
+
+def count_syncs(fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``: (its
+    result, the source lines of the synchronizing calls it made)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{w.filename}:{w.lineno}" for w in caught
+                 if "called a synchronizing" in str(w.message)]
+
+
+def report_syncs(tag: str, where: list) -> None:
+    names = sorted(set(where))
+    print(f"{tag}: {len(where)} synchronizing calls in one steady frame under "
+          f"set_sync_debug_mode('warn')" + (f": {names}" if names else ""), flush=True)
+    bad = [n for n in names if "affine_warp.py" in n or "ops/fast.py" in n]
+    if bad:
+        raise AssertionError(f"{tag}: a kernel wrapper synchronized the host: {bad}")
 
 
 def render_clip(cfg, n_frames: int, seed: int, dev):
@@ -299,41 +387,42 @@ def phase_slice(cfg, n_smooth: int, n_lock: int, seed: int, dev, card: str) -> d
     wh, ww = cfg.working_size
     warm = min(8, n_smooth // 2)
 
+    counter = aw.fallback_counter(dev)
+    counter.zero_()
     aw.launches = 0
-    aw.gather_fallbacks = 0
     outs, est = [], []
-    ev0 = torch.cuda.Event(enable_timing=True) if dev.type == "cuda" else None
-    ev1 = torch.cuda.Event(enable_timing=True) if dev.type == "cuda" else None
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
     t_host = 0.0
+    syncs = []
     for i in range(n_smooth + n_lock):
         if i == n_smooth:
             stab.set_stabilization_mode(StabilizationMode.ACCUMULATED_FULL_LOCK)
         if i == warm:
-            if ev0 is not None:
-                torch.cuda.synchronize()
-                ev0.record()
+            torch.cuda.synchronize()
+            ev0.record()
             t0 = time.perf_counter()
-        outs.append(stab.stabilize_frame(frames[i]))
+        if i == warm - 1:      # the last warm-up frame, under the sync check
+            out, syncs = count_syncs(lambda: stab.stabilize_frame(frames[i]))
+            outs.append(out)
+        else:
+            outs.append(stab.stabilize_frame(frames[i]))
         est.append(stab.carry.transforms[-1].clone())
         if i == n_smooth - 1:
-            if ev1 is not None:
-                ev1.record()
-                torch.cuda.synchronize()
+            ev1.record()
+            torch.cuda.synchronize()
             t_host = time.perf_counter() - t0
-    launches, fallbacks = aw.launches, aw.gather_fallbacks
+    launches = aw.launches
+    fallbacks = int(counter)          # the one read of the device's count
 
     for o in outs:
         if o.shape != (hf, wf, 3) or o.dtype != torch.uint8 or o.device != dev:
             raise AssertionError(f"bad output {tuple(o.shape)} {o.dtype} {o.device}")
     n_total = n_smooth + n_lock
     per_frame = LAUNCHES_PER_FRAME["config1"]
-    expected = per_frame * n_total - 2 * fallbacks
-    if fallbacks:
-        print(f"slice: {fallbacks} warps took the out-of-envelope gather", flush=True)
-    if launches != expected or launches == 0:
-        raise AssertionError(f"kernel launches {launches} != {expected} "
-                             f"({per_frame}/frame x {n_total}, "
-                             f"{fallbacks} gather fallbacks)")
+    if launches != per_frame * n_total:
+        raise AssertionError(f"warp launches {launches} != {per_frame}/frame x {n_total}")
+    report_syncs("slice", syncs)
 
     # inter-frame estimates vs analytic truth (frames 1 .. n_smooth-1)
     hs_est = [h.double().cpu().numpy() for h in est[1:n_smooth]]
@@ -357,10 +446,10 @@ def phase_slice(cfg, n_smooth: int, n_lock: int, seed: int, dev, card: str) -> d
     j_lock = jitter(out_l, crop)
     j_ideal = jitter(ideal_lock(frames, traj, n_smooth - delay, n_total - delay), crop)
     steady = n_smooth - warm
-    ms_frame = (ev0.elapsed_time(ev1) / steady) if ev0 is not None else float("nan")
+    ms_frame = ev0.elapsed_time(ev1) / steady
     print(f"slice: {n_smooth} smoothing + {n_lock} lock frames {hf}x{wf} -> "
-          f"working {wh}x{ww}; launches {launches} ({per_frame}/frame), "
-          f"gather fallbacks {fallbacks}", flush=True)
+          f"working {wh}x{ww}; warp launches {launches} ({per_frame}/frame), "
+          f"warps outside the envelope {fallbacks} (device count)", flush=True)
     print(f"slice: inter-frame corner drift {drift:.4f} px (< {DRIFT_TOL}); jitter "
           f"raw {j_raw:.3f} smoothed {j_smooth:.3f} (ratio {j_smooth / j_raw:.3f} < "
           f"{SMOOTH_JITTER}); lock {j_lock:.3f} vs raw clip {j_raw_all:.3f} (ratio "
@@ -378,7 +467,7 @@ def phase_slice(cfg, n_smooth: int, n_lock: int, seed: int, dev, card: str) -> d
         raise AssertionError(f"lock jitter {j_lock} !< {LOCK_JITTER} x {j_raw_all}")
     if not j_lock < LOCK_VS_IDEAL * j_ideal:
         raise AssertionError(f"lock jitter {j_lock} !< {LOCK_VS_IDEAL} x ideal {j_ideal}")
-    return {"launches": launches, "ms_frame": ms_frame}
+    return {"launches": launches, "ms_frame": ms_frame, "syncs": len(syncs)}
 
 
 def phase_orb(cfg, n_frames: int, seed: int, dev, card: str) -> dict:
@@ -397,33 +486,40 @@ def phase_orb(cfg, n_frames: int, seed: int, dev, card: str) -> dict:
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
 
+    counter = aw.fallback_counter(dev)
+    counter.zero_()
     fast.launches = 0
     aw.launches = 0
-    aw.gather_fallbacks = 0
     outs, matches, is_set = [], [], []
+    syncs = []
     for i in range(n_frames):
         if i == warm:
             torch.cuda.synchronize()
             ev0.record()
             t0 = time.perf_counter()
-        outs.append(stab.stabilize_frame(frames[i]))
+        if i == warm - 1:      # the last warm-up frame, under the sync check
+            out, syncs = count_syncs(lambda: stab.stabilize_frame(frames[i]))
+            outs.append(out)
+        else:
+            outs.append(stab.stabilize_frame(frames[i]))
         matches.append(stab.carry.last_lock_matches.clone())
         is_set.append(stab.carry.orb_ref.is_set.clone())
     ev1.record()
     torch.cuda.synchronize()
     t_host = time.perf_counter() - t0
-    fast_launches, resample_launches = fast.launches, aw.launches
-    fallbacks = aw.gather_fallbacks
+    fast_launches, warp_launches = fast.launches, aw.launches
+    fallbacks = int(counter)          # the one read of the device's count
 
     for o in outs:
         if o.shape != (hf, wf, 3) or o.dtype != torch.uint8 or o.device != dev:
             raise AssertionError(f"bad output {tuple(o.shape)} {o.dtype} {o.device}")
-    n_levels = len(FAST_SHAPES)
-    if fast_launches != n_levels * n_frames:
-        raise AssertionError(f"fast launches {fast_launches} != {n_levels} x {n_frames}")
-    expected = LAUNCHES_PER_FRAME["config3"] * n_frames - 2 * fallbacks
-    if resample_launches != expected or resample_launches == 0:
-        raise AssertionError(f"resample launches {resample_launches} != {expected}")
+    if fast_launches != FAST_LAUNCHES_PER_FRAME * n_frames:
+        raise AssertionError(f"fast launches {fast_launches} != "
+                             f"{FAST_LAUNCHES_PER_FRAME} x {n_frames}")
+    if warp_launches != LAUNCHES_PER_FRAME["config3"] * n_frames:
+        raise AssertionError(f"warp launches {warp_launches} != "
+                             f"{LAUNCHES_PER_FRAME['config3']} x {n_frames}")
+    report_syncs("orb", syncs)
     if not bool(is_set[0]):
         raise AssertionError("no ORB reference captured on the first frame")
     if not all(bool(x) for x in is_set):
@@ -444,8 +540,9 @@ def phase_orb(cfg, n_frames: int, seed: int, dev, card: str) -> dict:
     ms_frame = ev0.elapsed_time(ev1) / steady
     print(f"orb: {n_frames} ORB_FULL_LOCK frames {hf}x{wf} -> working "
           f"{cfg.working_size[0]}x{cfg.working_size[1]}; fast launches {fast_launches} "
-          f"({n_levels}/frame), resample launches {resample_launches}, gather "
-          f"fallbacks {fallbacks}", flush=True)
+          f"({FAST_LAUNCHES_PER_FRAME}/frame, {len(FAST_SHAPES)} levels each), warp "
+          f"launches {warp_launches}, warps outside the envelope {fallbacks} "
+          f"(device count)", flush=True)
     print(f"orb: lock matches min {min(registered)} median "
           f"{statistics.median(registered)} max {max(registered)}; >= {min_points} on "
           f"{matched:.3f} of {len(registered)} registered frames (>= {ORB_MATCHED})",
@@ -461,8 +558,8 @@ def phase_orb(cfg, n_frames: int, seed: int, dev, card: str) -> dict:
         raise AssertionError(f"ORB lock jitter {j_lock} !< {ORB_JITTER} x {j_raw}")
     if not j_lock <= LOCK_VS_IDEAL * j_ideal:
         raise AssertionError(f"ORB lock jitter {j_lock} !<= {LOCK_VS_IDEAL} x ideal {j_ideal}")
-    return {"fast_launches": fast_launches, "resample_launches": resample_launches,
-            "ms_frame": ms_frame}
+    return {"fast_launches": fast_launches, "warp_launches": warp_launches,
+            "ms_frame": ms_frame, "syncs": len(syncs)}
 
 
 def phase_reference(seed: int, dev) -> None:
@@ -534,7 +631,7 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    names = ("affine_resample", "fast_score")
+    names = ("affine_warp", "fast_score")
     cuda_build.build_kernels(names)
     aw._kernel_lib()
     fast._kernel_lib()
@@ -557,23 +654,25 @@ def main() -> int:
     # launches: each main path's run, counted from 0 just before it; ms,
     # plain_ms and bound_ms are per frame.  The top-level numbers of a kernel
     # are those of the first path that runs it, "paths" holds each path's.
-    resample_paths = {
+    print(f"host syncs per steady frame: config 1 {sl['syncs']}, config 3 {orb['syncs']}",
+          flush=True)
+    warp_paths = {
         "config1": {"launches": sl["launches"], **kern["config1"]},
-        "config3": {"launches": orb["resample_launches"], **kern["config3"]}}
+        "config3": {"launches": orb["warp_launches"], **kern["config3"]}}
     fast_paths = {"config3": {"launches": orb["fast_launches"],
-                              **{k: fk[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                    "bound_by")}}}
+                              **{k: fk[k] for k in ("ms", "plain_ms", "device_ms",
+                                                    "bound_ms", "bound_by")}}}
     record = {"kernels": [{
-        "name": "affine_resample",
+        "name": "affine_warp",
         "route": "cuda",
-        "source": "video_stabilization_tpu_torch/csrc/affine_resample.cu",
+        "source": "video_stabilization_tpu_torch/csrc/affine_warp.cu",
         "replaces": "video_stabilization_tpu/ops/pallas_warp.py:65",
-        **resample_paths["config1"],
+        **warp_paths["config1"],
         "max_abs_err": kern["max_abs_err"],
         "library_ms": None,
-        "paths": resample_paths,
+        "paths": warp_paths,
     }, {
-        "name": "fast_score",
+        "name": "fast_levels",
         "route": "cuda",
         "source": "video_stabilization_tpu_torch/csrc/fast_score.cu",
         "replaces": "video_stabilization_tpu/ops/fast.py:47",

@@ -45,16 +45,17 @@ def test_port_imports_without_jax():
 
 
 def test_kernel_module_imports_without_nvcc_or_gpu():
-    """Import and a CPU resample need no toolkit and build nothing."""
+    """Import and the CPU warp and FAST need no toolkit and build nothing."""
     proc = run_python(
         "import torch\n"
         "from video_stabilization_tpu_torch.ops import affine_warp as aw\n"
-        "x = torch.rand(1, 8, 9)\n"
-        "out = aw.resample(x, torch.tensor([1.0, 0.0, 0.5]), 8, 0)\n"
-        "assert out.shape == (1, 8, 9) and aw._lib is None and aw.launches == 0\n"
+        "out = aw.warp_affine(torch.rand(8, 9, 3), torch.eye(3), 2.0)\n"
+        "assert out.shape == (8, 9, 3) and aw._lib is None and aw.launches == 0\n"
         "from video_stabilization_tpu_torch.ops import fast\n"
         "score, _ = fast.fast_score(torch.rand(16, 20) * 255, 20.0)\n"
         "assert score.shape == (16, 20) and fast._lib is None and fast.launches == 0\n"
+        "maps = fast.fast_levels([torch.rand(16, 20) * 255, torch.rand(9, 12)], 20.0, 3)\n"
+        "assert [m.shape for m in maps] == [(16, 20), (9, 12)] and fast.launches == 0\n"
         "print('ok')",
         env_extra={"PATH": "/nonexistent", "CUDA_HOME": "/nonexistent"})
     assert proc.returncode == 0, proc.stderr

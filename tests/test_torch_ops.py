@@ -1,7 +1,7 @@
 """PyTorch port vs the JAX package: image ops, pyramid, gradients, warps.
 
 The same numpy inputs go through both packages on the CPU (the JAX Pallas
-warp in interpret mode, the port's resample in its plain version).
+warp in interpret mode, the port's warp in its plain version).
 """
 
 import jax.numpy as jnp
@@ -138,6 +138,27 @@ def test_warp_affine_outside_envelope_takes_gather():
     close(a, b, 1e-3)
 
 
+@pytest.mark.parametrize("theta,tx,ty", [(3.0, -2.5, 0.7), (20.0, 4.0, -3.0)])
+def test_warp_affine_strided_hwc_matches_jax(theta, tx, ty):
+    """An (H, W, C) view of planar (C, H, W) memory, as the warp takes it
+    without a copy, inside (3 degrees) and outside (20 degrees) the
+    envelope, against the JAX warp of the same values."""
+    planar = content((3, 72, 150), 8)
+    x = torch.from_numpy(planar).permute(1, 2, 0)
+    assert not x.is_contiguous()
+    h = rigid(theta, tx, ty)
+    border = np.array([3.0, 90.0, 200.0], np.float32)
+    inside = bool(taw.affine_envelope_ok(torch.from_numpy(h)))
+    assert inside == (theta < 9)
+    before = taw.gather_fallbacks
+    b = taw.warp_affine(x, torch.from_numpy(h), torch.from_numpy(border))
+    assert taw.gather_fallbacks == before + (not inside)
+    assert tuple(b.shape) == (72, 150, 3)
+    a = j_warp_affine(jnp.asarray(np.ascontiguousarray(planar.transpose(1, 2, 0))),
+                      jnp.asarray(h), jnp.asarray(border))
+    close(a, b, WARP_ATOL if inside else 1e-3)
+
+
 @pytest.mark.parametrize("theta,s", [(0.0, 1.0), (3.0, 1.0), (8.5, 1.0), (9.5, 1.0),
                                      (-12.0, 1.0), (20.0, 1.0), (2.0, 1.2), (0.0, 3.0),
                                      (90.0, 1.0)])
@@ -154,7 +175,8 @@ def test_resample_plain_is_bilinear_with_zero_extension(axis):
     x = content((2, 9, 11), 7)
     abg = np.array([1.03, 0.07, -1.6], np.float32)
     n_out = 12
-    out = taw.resample(torch.from_numpy(x), torch.from_numpy(abg), n_out, axis).numpy()
+    out = taw.resample_plain(torch.from_numpy(x), torch.from_numpy(abg), n_out,
+                             axis).numpy()
     src = x if axis == 0 else x.transpose(0, 2, 1)          # (C, n_in, L)
     n_in, n_l = src.shape[1], src.shape[2]
     ref = np.zeros((2, n_out, n_l))

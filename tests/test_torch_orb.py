@@ -22,6 +22,7 @@ from video_stabilization_tpu_torch.config import config_from_fields
 from video_stabilization_tpu_torch.ops import fast as tfast
 from video_stabilization_tpu_torch.ops import orb as torb
 from video_stabilization_tpu_torch.ops.filters import preprocess_for_registration
+from video_stabilization_tpu_torch.ops.image import resize_bilinear
 from video_stabilization_tpu_torch.ops.match import match_hamming_knn as t_match
 from video_stabilization_tpu_torch.ops.patches import extract_patches
 from video_stabilization_tpu_torch.sim import (
@@ -117,12 +118,55 @@ def test_pattern_tables_match_jax(pattern):
         np.testing.assert_array_equal(b, a)
 
 
+def _j_detect_maps(imgs, threshold, edge):
+    """The JAX package's per-level detection map (``orb._detect_level``):
+    ``where(valid_region, _nms3(fast_score(level)), 0)``.  Its FAST is
+    ``fast_score_xla``, which the JAX package's tests hold equal to the
+    Pallas kernel on every production pyramid shape."""
+    out = []
+    for img in imgs:
+        h, w = img.shape
+        score, _ = jfast.fast_score_xla(img, threshold)
+        valid = jnp.zeros((h, w), bool).at[edge:h - edge, edge:w - edge].set(True)
+        out.append(jnp.where(valid, jorb._nms3(score), 0.0))
+    return out
+
+
+_j_detect = jax.jit(_j_detect_maps, static_argnums=(1, 2))
+
+
+@pytest.mark.parametrize("shape", LEVEL_SHAPES)
+def test_fast_levels_plain_matches_jax(shape):
+    """Score, NMS and edge mask of one level, exact against compiled JAX."""
+    rng = np.random.default_rng(shape[1])
+    img = np.round(rng.uniform(0, 255, shape)).astype(np.float32)
+    e = ORBConfig().edge_threshold
+    (a,) = _j_detect([jnp.asarray(img)], 20.0, e)
+    (b,) = tfast.fast_levels_plain([torch.from_numpy(img)], 20.0, e)
+    np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    assert (b > 0).sum() > 0
+
+
 def lock_image(h, w):
     """A rendered frame at (h, w), gray and preprocessed as the lock does."""
     tex = torch.from_numpy(make_default_texture(np.random.default_rng(0), 256))
     frame = render_frame(tex, DEFAULT_APP_PARAMS, h, w).float()
     gray = 0.114 * frame[..., 0] + 0.587 * frame[..., 1] + 0.299 * frame[..., 2]
     return preprocess_for_registration(gray).numpy()
+
+
+def test_fast_levels_on_orb_levels_matches_jax():
+    """All ten levels of a preprocessed frame in one call of the port (as
+    ``orb_detect_and_compute`` makes it) against JAX per level, exact."""
+    img = torch.from_numpy(lock_image(*LEVEL_SHAPES[0]))
+    levels = [img] + [resize_bilinear(img, h, w).contiguous() for h, w in LEVEL_SHAPES[1:]]
+    cfg = ORBConfig()
+    a = _j_detect([jnp.asarray(x.numpy()) for x in levels], float(cfg.fast_threshold),
+                  cfg.edge_threshold)
+    b = tfast.fast_levels(levels, cfg.fast_threshold, cfg.edge_threshold)
+    for level, (x, y) in enumerate(zip(a, b)):
+        np.testing.assert_array_equal(y.numpy(), np.asarray(x), err_msg=f"level {level}")
+    assert sum(int((y > 0).sum()) for y in b) > 100
 
 
 def angle_bins(angle):

@@ -7,18 +7,19 @@ Port of ``video_stabilization_tpu/ops/pallas_warp.py``.  With the inverse
                  alpha = D − C·B/A,  beta = C/A,  gamma = ty − C·tx/A
     pass H:  out[c, y, x] = I1[c, y, A·x + B·y + tx]
 
-Each pass is :func:`resample`: on a CUDA tensor the hand-written kernel of
-``csrc/affine_resample.cu``, on a CPU tensor its plain PyTorch version
-(:func:`resample_plain`).  The constant border comes from the true inverse
-map and is fused into pass H.
+The constant border comes from the true inverse map.  The JAX package picks
+between two Pallas copy budgets and a projective gather by the transform's
+rotation envelope (~9°); the port keeps the branch choice, so both packages
+give the same values: inside :func:`affine_envelope_ok` the 2-pass result,
+outside it :func:`~video_stabilization_tpu_torch.ops.warp.warp_perspective`.
 
-The JAX package picks between two Pallas copy budgets and a projective
-gather by the transform's rotation envelope (~9°).  The CUDA kernel has no
-copy budget, so both budgets are one path here; the branch choice is kept —
-inside :func:`affine_envelope_ok` the 2-pass resample, outside it
-:func:`~video_stabilization_tpu_torch.ops.warp.warp_perspective` — so both
-packages give the same values.  Making that choice reads one boolean from
-the device per call.
+:func:`warp_affine` on a CUDA tensor is one launch of the hand-written
+kernel of ``csrc/affine_warp.cu``: it derives both passes' parameters and
+the envelope branch on the device, fuses the passes through shared memory,
+reads and writes the (H, W, C) layout in place, and reads nothing back to
+the host; a warp outside the envelope adds one to :func:`fallback_counter`.
+On a CPU tensor it is the plain version :func:`warp_affine_plain`, built
+from :func:`resample_plain`, which decides the branch on the host.
 """
 
 from __future__ import annotations
@@ -34,32 +35,38 @@ from video_stabilization_tpu_torch.utils.cuda_build import load_kernel
 # |alpha-1|·8 + |beta|·128 + 3 <= COPIES for both passes, ~9° of rotation.
 COPIES = 26
 
-# Launches of the CUDA kernel (one per pass) and calls that took the
-# projective gather outside the envelope.  Plain integers: a caller resets
-# them and reads them around the run it wants to account for.
+# Launches of the CUDA kernel (one per warp) and plain-version calls that
+# took the projective gather outside the envelope.  Plain integers: a caller
+# resets them and reads them around the run it wants to account for.  The
+# CUDA warps outside the envelope are counted on the device
+# (:func:`fallback_counter`), so that counting them reads nothing back.
 launches = 0
 gather_fallbacks = 0
 
 _lib = None
+_fallback_counters: dict = {}
 
 
 def _kernel_lib():
     global _lib
     if _lib is None:
-        lib = load_kernel("affine_resample")
-        fn = lib.vstab_affine_resample
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib = load_kernel("affine_warp")
+        fn = lib.vstab_affine_warp
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_void_p]
+                       + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _check(name: str, t: torch.Tensor, dim: int, device) -> None:
-    if t.dtype != torch.float32 or t.dim() != dim or not t.is_contiguous():
-        raise ValueError(f"resample: {name} must be a contiguous {dim}-d float32 "
-                         f"tensor, got {t.dtype} {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"resample: {name} is on {t.device}, expected {device}")
+def fallback_counter(device) -> torch.Tensor:
+    """The (1,) int32 device tensor that counts the CUDA warps on ``device``
+    that took the projective gather.  A caller zeroes it (``.zero_()``)
+    before the run it accounts for and reads it once after."""
+    device = torch.device(device)
+    if device not in _fallback_counters:
+        _fallback_counters[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _fallback_counters[device]
 
 
 def _positions(abg: torch.Tensor, n_out: int, n_l: int, device) -> torch.Tensor:
@@ -79,7 +86,7 @@ def _border_mask(hinv: torch.Tensor, h: int, w: int, device) -> torch.Tensor:
 def resample_plain(x: torch.Tensor, abg: torch.Tensor, n_out: int, axis: int,
                    hinv: torch.Tensor | None = None,
                    border: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (same arithmetic, op for op).
+    """One resample pass of the plain version.
 
     axis 0: x (C, n_in, L) -> (C, n_out, L), out[c, r, l] = x[c, p(r, l), l];
     axis 1: x (C, L, n_in) -> (C, L, n_out), out[c, l, r] = x[c, l, p(r, l)];
@@ -112,51 +119,6 @@ def resample_plain(x: torch.Tensor, abg: torch.Tensor, n_out: int, axis: int,
     return out
 
 
-def resample(x: torch.Tensor, abg: torch.Tensor, n_out: int, axis: int,
-             hinv: torch.Tensor | None = None,
-             border: torch.Tensor | None = None) -> torch.Tensor:
-    """One resample pass (see :func:`resample_plain` for the contract).
-
-    A CPU tensor goes to the plain version; a CUDA tensor to the kernel,
-    which raises rather than falls back if it cannot run."""
-    if x.device.type == "cpu":
-        return resample_plain(x, abg, n_out, axis, hinv, border)
-    if x.device.type != "cuda":
-        raise ValueError(f"resample: unsupported device {x.device}")
-    if axis not in (0, 1):
-        raise ValueError(f"resample: axis must be 0 or 1, got {axis}")
-    _check("x", x, 3, x.device)
-    _check("abg", abg, 1, x.device)
-    if abg.numel() != 3:
-        raise ValueError(f"resample: abg must hold 3 values, got {abg.numel()}")
-    c = x.shape[0]
-    if hinv is not None:
-        if axis != 1 or border is None:
-            raise ValueError("resample: the border mask needs axis 1 and a border")
-        _check("hinv", hinv, 2, x.device)
-        _check("border", border, 1, x.device)
-        if tuple(hinv.shape) != (2, 3) or border.numel() != c:
-            raise ValueError("resample: hinv must be (2, 3) and border (C,)")
-    n_in = x.shape[1] if axis == 0 else x.shape[2]
-    n_l = x.shape[2] if axis == 0 else x.shape[1]
-    out_shape = (c, n_out, n_l) if axis == 0 else (c, n_l, n_out)
-    out = torch.empty(out_shape, dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
-        return out
-    fn = _kernel_lib().vstab_affine_resample
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), out.data_ptr(), abg.data_ptr(),
-                 hinv.data_ptr() if hinv is not None else None,
-                 border.data_ptr() if hinv is not None else None,
-                 c, n_in, n_l, n_out, axis,
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"affine_resample launch failed: CUDA error {err}")
-    global launches
-    launches += 1
-    return out
-
-
 def _pass_params(hinv: torch.Tensor):
     """(pass V (alpha, beta, gamma), pass H (A, B, tx)) from the inverse map,
     with ``a_safe`` clamped as in the JAX package."""
@@ -183,19 +145,15 @@ def affine_envelope_ok(h: torch.Tensor) -> torch.Tensor:
     return _envelope_ok_inv(_inv3x3(h.float()))
 
 
-def warp_affine(
+def warp_affine_plain(
     src: torch.Tensor,
     h: torch.Tensor,
     border_value: torch.Tensor | float = 0.0,
     *,
     projective_fallback: bool = True,
 ) -> torch.Tensor:
-    """Warp ``src`` ((H, W) or (H, W, C)) by the affine ``h`` (src->dst),
-    bilinear, constant border; the projective row of ``h`` is ignored.
-
-    ``projective_fallback`` takes the gather path outside the envelope (one
-    host read of the envelope predicate); without it the 2-pass resample
-    always runs."""
+    """Plain PyTorch version of :func:`warp_affine`, on any device.  The
+    branch is chosen on the host (one read of the envelope predicate)."""
     src = src.float()
     has_c = src.dim() == 3
     planes = (src.permute(2, 0, 1) if has_c else src[None]).contiguous()
@@ -204,7 +162,7 @@ def warp_affine(
     hinv = _inv3x3(h.float())
     if isinstance(border_value, torch.Tensor):
         border = border_value.to(device=dev, dtype=torch.float32).expand(c).contiguous()
-    else:   # a fill kernel, not a host-to-device copy that would sync
+    else:
         border = torch.full((c,), float(border_value), dtype=torch.float32, device=dev)
 
     global gather_fallbacks
@@ -214,17 +172,75 @@ def warp_affine(
         out = warp_perspective(img, h, None, 0.0).permute(2, 0, 1)
         out = torch.where(_border_mask(hinv, hh, ww, dev)[None], out,
                           border[:, None, None])
-    else:
-        out = warp_planes_2pass(planes, hinv, border)
+    else:   # pass V, then pass H with the border fused
+        p_v, p_h = _pass_params(hinv)
+        i1 = resample_plain(planes, p_v, hh, 0)
+        out = resample_plain(i1, p_h, ww, 1, hinv[:2], border)
     return out.permute(1, 2, 0) if has_c else out[0]
 
 
-def warp_planes_2pass(planes: torch.Tensor, hinv: torch.Tensor, border: torch.Tensor,
-                      resample_fn=resample) -> torch.Tensor:
-    """(C, H, W) f32 planes warped by the inverse affine map ``hinv`` with
-    the (C,) ``border``: pass V, then pass H with the border fused.
-    ``resample_fn`` lets a caller run the plain version on any device."""
-    _, hh, ww = planes.shape
-    p_v, p_h = _pass_params(hinv)
-    i1 = resample_fn(planes, p_v, hh, 0)
-    return resample_fn(i1, p_h, ww, 1, hinv[:2].contiguous(), border)
+def warp_affine(
+    src: torch.Tensor,
+    h: torch.Tensor,
+    border_value: torch.Tensor | float = 0.0,
+    *,
+    projective_fallback: bool = True,
+) -> torch.Tensor:
+    """Warp ``src`` ((H, W) or (H, W, C), any strides) by the affine ``h``
+    (src->dst), bilinear, constant border; the projective row of ``h`` is
+    ignored by the 2-pass path.  Returns a tensor of ``src``'s shape.
+
+    ``projective_fallback`` takes the projective gather outside the
+    envelope; without it the 2-pass resample always runs.  A CPU tensor goes
+    to :func:`warp_affine_plain`; a CUDA tensor to one launch of the kernel,
+    which raises rather than falls back if it cannot run."""
+    if src.device.type == "cpu":
+        return warp_affine_plain(src, h, border_value,
+                                 projective_fallback=projective_fallback)
+    if src.device.type != "cuda":
+        raise ValueError(f"warp_affine: unsupported device {src.device}")
+    if src.dim() not in (2, 3):
+        raise ValueError(f"warp_affine: src must be (H, W) or (H, W, C), got "
+                         f"{tuple(src.shape)}")
+    if tuple(h.shape) != (3, 3) or h.device != src.device:
+        raise ValueError(f"warp_affine: h must be a (3, 3) tensor on {src.device}, got "
+                         f"{tuple(h.shape)} on {h.device}")
+    src = src.float()
+    c = src.shape[2] if src.dim() == 3 else 1
+    border, border_scalar = None, 0.0
+    if isinstance(border_value, torch.Tensor):
+        border = border_value.to(device=src.device, dtype=torch.float32).expand(c).contiguous()
+    else:   # passed by value: no fill kernel
+        border_scalar = float(border_value)
+    return _launch(src, _inv3x3(h.float()).contiguous(), border, border_scalar,
+                   projective_fallback)
+
+
+def _launch(src: torch.Tensor, hinv: torch.Tensor, border: torch.Tensor | None,
+            border_scalar: float, projective_fallback: bool) -> torch.Tensor:
+    """One launch of the kernel on the float32 CUDA image ``src`` with the
+    contiguous (3, 3) inverse map ``hinv`` and the (C,) ``border`` (or, if
+    None, ``border_scalar``); returns the contiguous output."""
+    dev = src.device
+    hh, ww = src.shape[0], src.shape[1]
+    out = torch.empty(src.shape, dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    # element strides (channel, row, column); a 2-d image is one channel
+    c = src.shape[2] if src.dim() == 3 else 1
+    s_y, s_x = src.stride(0), src.stride(1)
+    s_c = src.stride(2) if src.dim() == 3 else 0
+    o_y, o_x = out.stride(0), out.stride(1)
+    o_c = out.stride(2) if out.dim() == 3 else 0
+    fn = _kernel_lib().vstab_affine_warp
+    with torch.cuda.device(dev):
+        err = fn(src.data_ptr(), out.data_ptr(), hinv.data_ptr(),
+                 border.data_ptr() if border is not None else None, border_scalar,
+                 fallback_counter(dev).data_ptr(), s_c, s_y, s_x, o_c, o_y, o_x,
+                 c, hh, ww, int(projective_fallback),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"affine_warp launch failed: CUDA error {err}")
+    global launches
+    launches += 1
+    return out

@@ -1,10 +1,11 @@
 """ORB detect + describe: multi-scale FAST and steered BRIEF, fixed shapes.
 
 Port of ``video_stabilization_tpu/ops/orb.py`` (cv::ORB with the reference's
-settings, src/stabilizer.cpp:483-493).  Per pyramid level, at its exact
-shape: FAST (``ops/fast.py``, the CUDA kernel on the card), 3x3 NMS, the
-edge-threshold border, the best responder per 4x4 (2x2 on small levels)
-cell, and the 7-tap Gaussian blur.  Then one top-k over every level's cell
+settings, src/stabilizer.cpp:483-493).  Every level image is built first;
+then FAST, 3x3 NMS and the edge-threshold border of every level at its
+exact shape (``ops/fast.py::fast_levels``, one launch of the CUDA kernel on
+the card), and per level the best responder per 4x4 (2x2 on small levels)
+cell and the 7-tap Gaussian blur.  Then one top-k over every level's cell
 winners, patch extraction per level, and one describe pass: the
 intensity-centroid angle quantized to 72 bins, and 256 steered test pairs
 read from the blurred patch.
@@ -28,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from video_stabilization_tpu_torch.config import ORBConfig
-from video_stabilization_tpu_torch.ops.fast import fast_score
+from video_stabilization_tpu_torch.ops.fast import fast_levels
 from video_stabilization_tpu_torch.ops.gftt import top_k_stable
 from video_stabilization_tpu_torch.ops.image import resize_bilinear
 from video_stabilization_tpu_torch.ops.patches import extract_patches
@@ -116,12 +117,6 @@ def _gauss7(img: torch.Tensor) -> torch.Tensor:
     return _taps(_reflect101_pad(rows, 3, -1), _G7, w, -1)
 
 
-def _nms3(score: torch.Tensor) -> torch.Tensor:
-    """Keep positive 3x3 local maxima (ties keep all)."""
-    neigh = F.max_pool2d(score[None, None], 3, stride=1, padding=1)[0, 0]
-    return torch.where((score >= neigh) & (score > 0), score, 0.0)
-
-
 def _level_budgets(total: int, n_levels: int, scale: float) -> list[int]:
     r = 1.0 / (scale * scale)
     weights = [r ** i for i in range(n_levels)]
@@ -197,26 +192,25 @@ def orb_detect_and_compute(img: torch.Tensor, config: ORBConfig = ORBConfig()
     budgets = _level_budgets(config.max_features, config.n_levels, config.scale_factor)
     e = config.edge_threshold
 
-    # per level at its exact shape: FAST, NMS, border, cell reduce, blur
-    levels = []
-    vals, cys, cxs = [], [], []
-    level_img = img
+    # every level that fits, all resized from the input; then FAST, NMS and
+    # the border of all of them at once, and per level the cell reduce and blur
+    level_imgs = []
     for level in range(config.n_levels):
-        lh, lw = level_img.shape
+        lh = int(round(h / (config.scale_factor ** level)))
+        lw = int(round(w / (config.scale_factor ** level)))
         if lh <= 2 * e or lw <= 2 * e:
             break
-        score, _ = fast_score(level_img, config.fast_threshold)
-        inside = torch.zeros((lh, lw), dtype=torch.bool, device=dev)
-        inside[e:lh - e, e:lw - e] = True
-        score = torch.where(inside, _nms3(score), 0.0)
+        level_imgs.append(resize_bilinear(img, lh, lw).contiguous() if level else img)
+    scores = fast_levels(level_imgs, config.fast_threshold, e)
+    levels = []
+    vals, cys, cxs = [], [], []
+    for level, (level_img, score) in enumerate(zip(level_imgs, scores)):
+        lh, lw = level_img.shape
         v, cy, cx = _cell_reduce(score, 4 if min(lh, lw) >= 200 else 2)
         levels.append((level_img, _gauss7(level_img), lh, lw, config.scale_factor ** level))
         vals.append(v)
         cys.append(cy)
         cxs.append(cx)
-        nh = int(round(h / (config.scale_factor ** (level + 1))))
-        nw = int(round(w / (config.scale_factor ** (level + 1))))
-        level_img = resize_bilinear(img, nh, nw).contiguous()
     n_lv = len(levels)
 
     # one top-k over every level's cell winners (zero-padded rows)

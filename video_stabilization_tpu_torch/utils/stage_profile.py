@@ -28,7 +28,7 @@ import time
 import numpy as np
 import torch
 
-HAND_WRITTEN = ("fast_score_kernel", "resample_kernel")
+HAND_WRITTEN = ("fast_levels_kernel", "affine_warp_kernel")
 # set by main() around the profiled frames only
 enabled = False
 
