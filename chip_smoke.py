@@ -28,8 +28,15 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    ``Stabilizer.stabilize_frame``; launch counts of both kernels, host
    syncs of one frame, the captured reference, lock matches, jitter against
    the raw footage and an ideal lock, ms/frame;
-6. reference: the step on a small clip, on the card and on the CPU (plain
-   versions), frame for frame, in GLOBAL_SMOOTHING and in ORB_FULL_LOCK.
+6. the SIFT slice: bench config 4 (1080x1920 frames, working height 360,
+   the default SIFT settings, ECC with 30 iterations, same window) in
+   SIFT_FULL_LOCK, with the ORB slice's checks, the shares of registered
+   frames whose ECC refinement was valid and raised rho above its start,
+   and ECC with the warp kernel against ECC with the plain warp on one real
+   frame pair (equal, and moved from the identity);
+7. reference: the step on a small clip, on the card and on the CPU (plain
+   versions), frame for frame, in GLOBAL_SMOOTHING, in ORB_FULL_LOCK and in
+   SIFT_FULL_LOCK with ECC.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -49,10 +56,16 @@ import numpy as np
 import torch
 
 # per-frame count of 2-pass warps at each shape, by configuration: LK levels
-# 2, 1 and 0 (twice) of the 360x640 working image, then the output frame
+# 2, 1 and 0 (twice) of the 360x640 working image, then the output frame;
+# at config 4 ECC warps the 360x640 gray image once per iteration, then at
+# the final and the initial transform
+ECC_ITERS = 30           # bench config 4 (bench.py engine_config)
+SIFT_FRAMES = 64         # frames of the config-4 slice
 _LK_WARPS = {(1, 90, 160): 1, (1, 180, 320): 1, (1, 360, 640): 2}
 WARPS_PER_FRAME = {"config1": {**_LK_WARPS, (3, 1080, 1920): 1},
-                   "config3": {**_LK_WARPS, (3, 720, 1280): 1}}
+                   "config3": {**_LK_WARPS, (3, 720, 1280): 1},
+                   "config4": {**_LK_WARPS, (1, 360, 640): 2 + ECC_ITERS + 2,
+                               (3, 1080, 1920): 1}}
 SHAPES = sorted({s for warps in WARPS_PER_FRAME.values() for s in warps})
 # one launch per warp, whichever branch the device takes
 LAUNCHES_PER_FRAME = {k: sum(v.values()) for k, v in WARPS_PER_FRAME.items()}
@@ -84,6 +97,8 @@ LOCK_JITTER = 0.4        # accumulated lock / raw jitter
 LOCK_VS_IDEAL = 1.25     # accumulated lock / lock by the analytic motion
 ORB_JITTER = 0.6         # ORB lock / raw presented jitter (tests/test_engine.py)
 ORB_MATCHED = 0.9        # share of registered frames with >= min_points matches
+SIFT_JITTER = 0.6        # SIFT lock / raw presented jitter, as the ORB lock
+ECC_IMPROVED = 0.75      # share of registered frames on which ECC raised rho
 REF_DRIFT_TOL = 0.05     # px, card vs CPU per-frame last_h
 REF_MEAN_U8 = 0.5        # mean |card - CPU| output, u8 levels
 REF_MATCHES = 2          # |card - CPU| lock matches per frame
@@ -467,19 +482,28 @@ def phase_slice(cfg, n_smooth: int, n_lock: int, seed: int, dev, card: str) -> d
         raise AssertionError(f"lock jitter {j_lock} !< {LOCK_JITTER} x {j_raw_all}")
     if not j_lock < LOCK_VS_IDEAL * j_ideal:
         raise AssertionError(f"lock jitter {j_lock} !< {LOCK_VS_IDEAL} x ideal {j_ideal}")
-    return {"launches": launches, "ms_frame": ms_frame, "syncs": len(syncs)}
+    return {"launches": launches, "frames": n_total, "ms_frame": ms_frame,
+            "syncs": len(syncs)}
 
 
-def phase_orb(cfg, n_frames: int, seed: int, dev, card: str) -> dict:
-    """The ORB slice: Stabilizer.stabilize_frame in ORB_FULL_LOCK from the
-    first frame, whose presentation frame becomes the reference."""
+def phase_lock(cfg, mode, path: str, n_frames: int, seed: int, dev, card: str) -> dict:
+    """A registration-lock slice (ORB or SIFT): Stabilizer.stabilize_frame
+    in ``mode`` from the first frame, whose presentation frame becomes the
+    reference.  ``path`` names its warp count in WARPS_PER_FRAME."""
+    from unittest import mock
+
     from video_stabilization_tpu_torch.config import StabilizationMode
-    from video_stabilization_tpu_torch.engine import Stabilizer
+    from video_stabilization_tpu_torch.engine import Stabilizer, lock
     from video_stabilization_tpu_torch.ops import affine_warp as aw
     from video_stabilization_tpu_torch.ops import fast
 
+    tag = {StabilizationMode.ORB_FULL_LOCK: "orb",
+           StabilizationMode.SIFT_FULL_LOCK: "sift"}[mode]
+    ref_of = f"{tag}_ref"
+    jitter_bound = ORB_JITTER if tag == "orb" else SIFT_JITTER
+    fast_per_frame = FAST_LAUNCHES_PER_FRAME if tag == "orb" else 0
     frames, traj = render_clip(cfg, n_frames, seed, dev)
-    stab = Stabilizer(cfg, StabilizationMode.ORB_FULL_LOCK, seed=seed, device=dev)
+    stab = Stabilizer(cfg, mode, seed=seed, device=dev)
     hf, wf = cfg.frame_height, cfg.frame_width
     delay = cfg.future_frames
     warm = 8
@@ -488,42 +512,61 @@ def phase_orb(cfg, n_frames: int, seed: int, dev, card: str) -> dict:
 
     counter = aw.fallback_counter(dev)
     counter.zero_()
+    # each lock frame's ECC result, kept on the device and read once after
+    # the run (the first frame's ECC runs against the empty reference, the
+    # next ``delay`` frames' on the reference frame itself)
+    refine = lock.ecc_refine_euclidean
+    ecc_runs = []
+
+    def ecc_kept(*a, **kw):
+        ecc_runs.append(refine(*a, **kw))
+        return ecc_runs[-1]
+
     fast.launches = 0
     aw.launches = 0
     outs, matches, is_set = [], [], []
     syncs = []
-    for i in range(n_frames):
-        if i == warm:
-            torch.cuda.synchronize()
-            ev0.record()
-            t0 = time.perf_counter()
-        if i == warm - 1:      # the last warm-up frame, under the sync check
-            out, syncs = count_syncs(lambda: stab.stabilize_frame(frames[i]))
-            outs.append(out)
-        else:
-            outs.append(stab.stabilize_frame(frames[i]))
-        matches.append(stab.carry.last_lock_matches.clone())
-        is_set.append(stab.carry.orb_ref.is_set.clone())
-    ev1.record()
-    torch.cuda.synchronize()
+    with mock.patch.object(lock, "ecc_refine_euclidean", ecc_kept):
+        for i in range(n_frames):
+            if i == warm:
+                torch.cuda.synchronize()
+                ev0.record()
+                t0 = time.perf_counter()
+            if i == warm - 1:      # the last warm-up frame, under the sync check
+                out, syncs = count_syncs(lambda: stab.stabilize_frame(frames[i]))
+                outs.append(out)
+            else:
+                outs.append(stab.stabilize_frame(frames[i]))
+            matches.append(stab.carry.last_lock_matches.clone())
+            is_set.append(getattr(stab.carry, ref_of).is_set.clone())
+        ev1.record()
+        torch.cuda.synchronize()
     t_host = time.perf_counter() - t0
     fast_launches, warp_launches = fast.launches, aw.launches
     fallbacks = int(counter)          # the one read of the device's count
+    if cfg.ecc.enabled:
+        if len(ecc_runs) != n_frames:
+            raise AssertionError(f"{tag}: ECC ran {len(ecc_runs)} times in {n_frames} frames")
+        registered_ecc = ecc_runs[delay + 1:]
+        n_ecc_valid = int(torch.stack([r.valid for r in registered_ecc]).sum())
+        n_ecc_improved = int(torch.stack([r.valid & (r.rho > r.rho_init)
+                                          for r in registered_ecc]).sum())
 
     for o in outs:
         if o.shape != (hf, wf, 3) or o.dtype != torch.uint8 or o.device != dev:
             raise AssertionError(f"bad output {tuple(o.shape)} {o.dtype} {o.device}")
-    if fast_launches != FAST_LAUNCHES_PER_FRAME * n_frames:
-        raise AssertionError(f"fast launches {fast_launches} != "
-                             f"{FAST_LAUNCHES_PER_FRAME} x {n_frames}")
-    if warp_launches != LAUNCHES_PER_FRAME["config3"] * n_frames:
-        raise AssertionError(f"warp launches {warp_launches} != "
-                             f"{LAUNCHES_PER_FRAME['config3']} x {n_frames}")
-    report_syncs("orb", syncs)
+    if fast_launches != fast_per_frame * n_frames:
+        raise AssertionError(f"{tag}: fast launches {fast_launches} != "
+                             f"{fast_per_frame} x {n_frames}")
+    per_frame = LAUNCHES_PER_FRAME[path]
+    if warp_launches != per_frame * n_frames:
+        raise AssertionError(f"{tag}: warp launches {warp_launches} != "
+                             f"{per_frame} x {n_frames}")
+    report_syncs(tag, syncs)
     if not bool(is_set[0]):
-        raise AssertionError("no ORB reference captured on the first frame")
+        raise AssertionError(f"no {tag} reference captured on the first frame")
     if not all(bool(x) for x in is_set):
-        raise AssertionError("the ORB reference was lost")
+        raise AssertionError(f"the {tag} reference was lost")
     # frames that register a new presentation frame against the reference
     # (before that the presented frame is the reference itself)
     registered = [int(m) for m in matches[delay + 1:]]
@@ -538,51 +581,120 @@ def phase_orb(cfg, n_frames: int, seed: int, dev, card: str) -> dict:
     j_ideal = jitter(ideal_lock(frames, traj.to("cpu"), 0, stop)[1:], crop)
     steady = n_frames - warm
     ms_frame = ev0.elapsed_time(ev1) / steady
-    print(f"orb: {n_frames} ORB_FULL_LOCK frames {hf}x{wf} -> working "
+    print(f"{tag}: {n_frames} {mode.name} frames {hf}x{wf} -> working "
           f"{cfg.working_size[0]}x{cfg.working_size[1]}; fast launches {fast_launches} "
-          f"({FAST_LAUNCHES_PER_FRAME}/frame, {len(FAST_SHAPES)} levels each), warp "
-          f"launches {warp_launches}, warps outside the envelope {fallbacks} "
-          f"(device count)", flush=True)
-    print(f"orb: lock matches min {min(registered)} median "
+          f"({fast_per_frame}/frame), warp launches {warp_launches} ({per_frame}/frame), "
+          f"warps outside the envelope {fallbacks} (device count)", flush=True)
+    print(f"{tag}: lock matches min {min(registered)} median "
           f"{statistics.median(registered)} max {max(registered)}; >= {min_points} on "
           f"{matched:.3f} of {len(registered)} registered frames (>= {ORB_MATCHED})",
           flush=True)
-    print(f"orb: jitter raw {j_raw:.3f} locked {j_lock:.3f} (ratio {j_lock / j_raw:.3f} "
-          f"< {ORB_JITTER}), ideal lock {j_ideal:.3f} (ratio {j_ideal / j_raw:.3f}; "
+    print(f"{tag}: jitter raw {j_raw:.3f} locked {j_lock:.3f} (ratio {j_lock / j_raw:.3f} "
+          f"< {jitter_bound}), ideal lock {j_ideal:.3f} (ratio {j_ideal / j_raw:.3f}; "
           f"lock/ideal {j_lock / j_ideal:.3f} <= {LOCK_VS_IDEAL})", flush=True)
-    print(f"orb: {ms_frame:.3f} ms/frame (CUDA events, {steady} steady frames), host "
+    if cfg.ecc.enabled:
+        n_reg = len(registered_ecc)
+        print(f"{tag}: ECC ({cfg.ecc.max_iters} iterations) valid on {n_ecc_valid} of "
+              f"{n_reg} registered frames ({n_ecc_valid / n_reg:.3f}); rho raised above "
+              f"its start on {n_ecc_improved} ({n_ecc_improved / n_reg:.3f} >= "
+              f"{ECC_IMPROVED})", flush=True)
+    print(f"{tag}: {ms_frame:.3f} ms/frame (CUDA events, {steady} steady frames), host "
           f"{1e3 * t_host / steady:.3f} ms/frame; {card}", flush=True)
     if not matched >= ORB_MATCHED:
-        raise AssertionError(f"lock matches >= {min_points} on only {matched:.3f}")
-    if not j_lock < ORB_JITTER * j_raw:
-        raise AssertionError(f"ORB lock jitter {j_lock} !< {ORB_JITTER} x {j_raw}")
+        raise AssertionError(f"{tag}: lock matches >= {min_points} on only {matched:.3f}")
+    if not j_lock < jitter_bound * j_raw:
+        raise AssertionError(f"{tag} lock jitter {j_lock} !< {jitter_bound} x {j_raw}")
     if not j_lock <= LOCK_VS_IDEAL * j_ideal:
-        raise AssertionError(f"ORB lock jitter {j_lock} !<= {LOCK_VS_IDEAL} x ideal {j_ideal}")
+        raise AssertionError(f"{tag} lock jitter {j_lock} !<= {LOCK_VS_IDEAL} x ideal "
+                             f"{j_ideal}")
+    if cfg.ecc.enabled and not n_ecc_improved >= ECC_IMPROVED * n_reg:
+        raise AssertionError(f"{tag}: ECC raised rho on only {n_ecc_improved} of "
+                             f"{n_reg} registered frames")
     return {"fast_launches": fast_launches, "warp_launches": warp_launches,
-            "ms_frame": ms_frame, "syncs": len(syncs)}
+            "frames": n_frames, "ms_frame": ms_frame, "syncs": len(syncs)}
+
+
+def phase_ecc_kernel_vs_plain(cfg, seed: int, dev) -> None:
+    """ECC on the card with the warp kernel against ECC on the card with the
+    plain warp, on one real frame pair (frames 0 and 8 of the slice's
+    footage, preprocessed as the lock does) at the working size: equal
+    ``h``, ``rho`` and ``valid`` (the kernel equals its plain version bit for
+    bit, so any difference is a fault of the ECC port).  The camera moved
+    between the two frames, so ECC from the identity must also do work: a
+    valid result, rho raised above its start, and a rotation or shift of
+    more than ``ecc.epsilon``."""
+    from unittest import mock
+
+    from video_stabilization_tpu_torch.engine.lock import _preprocessed
+    from video_stabilization_tpu_torch.ops import affine_warp as aw
+    from video_stabilization_tpu_torch.ops import ecc as ecc_mod
+
+    wh, ww = cfg.working_size
+    frames, _ = render_clip(cfg, 9, seed, dev)
+    ref, cur = (_preprocessed(frames[i].float(), cfg)[0] for i in (0, 8))
+    eye = torch.eye(3, device=dev)
+
+    def run():
+        return ecc_mod.ecc_refine_euclidean(ref, cur, eye, max_iters=cfg.ecc.max_iters,
+                                            eps=cfg.ecc.epsilon)
+
+    launches = aw.launches
+    k = run()
+    if aw.launches - launches != cfg.ecc.max_iters + 2:
+        raise AssertionError(f"ECC launched the warp kernel {aw.launches - launches} "
+                             f"times, not {cfg.ecc.max_iters + 2}")
+    ms = time_ms(run, reps=5, inner=2, warmup=1)
+    with mock.patch.object(ecc_mod, "warp_affine", aw.warp_affine_plain):
+        p = run()
+        plain_ms = time_ms(run, reps=5, inner=2, warmup=1)
+    same = (torch.equal(k.h, p.h) and torch.equal(k.rho, p.rho)
+            and torch.equal(k.valid, p.valid))
+    theta, tx, ty = (float(v) for v in (torch.atan2(k.h[1, 0], k.h[0, 0]), k.h[0, 2],
+                                        k.h[1, 2]))
+    moved = max(abs(theta), abs(tx), abs(ty))
+    print(f"ecc: kernel vs plain warp on frames 0 and 8 ({wh}x{ww}, {cfg.ecc.max_iters} "
+          f"iterations from the identity): equal {same}; rho {float(k.rho_init):.6f} -> "
+          f"{float(k.rho):.6f}, valid {bool(k.valid)}, theta {theta:.6f} rad, t "
+          f"({tx:.4f}, {ty:.4f}) px; {ms:.3f} ms per call with the kernel, "
+          f"{plain_ms:.3f} ms with the plain warp (back to back)", flush=True)
+    if not same:
+        raise AssertionError(f"ECC with the kernel != ECC with the plain warp: h "
+                             f"{k.h.tolist()} vs {p.h.tolist()}, rho {float(k.rho)} vs "
+                             f"{float(p.rho)}, valid {bool(k.valid)} vs {bool(p.valid)}")
+    if not (bool(k.valid) and float(k.rho) > float(k.rho_init) and moved > cfg.ecc.epsilon):
+        raise AssertionError(f"ECC did no work on frames 0 and 8: valid {bool(k.valid)}, rho "
+                             f"{float(k.rho_init)} -> {float(k.rho)}, largest parameter "
+                             f"{moved} (eps {cfg.ecc.epsilon})")
 
 
 def phase_reference(seed: int, dev) -> None:
     """A small clip through the step on the card and on the CPU, in
-    GLOBAL_SMOOTHING and in ORB_FULL_LOCK."""
+    GLOBAL_SMOOTHING, in ORB_FULL_LOCK and in SIFT_FULL_LOCK with ECC."""
+    import dataclasses
+
     from video_stabilization_tpu_torch.config import (
-        GFTTConfig, ORBConfig, RansacConfig, StabilizationMode, StabilizerConfig)
+        ECCConfig, GFTTConfig, ORBConfig, RansacConfig, SIFTConfig, StabilizationMode,
+        StabilizerConfig)
     from video_stabilization_tpu_torch.engine import Stabilizer
 
-    # the ORB settings of tests/test_engine.py's small config: a 120 px
-    # working image needs a lower FAST threshold and a looser size filter
+    # the ORB and SIFT settings of tests/test_engine.py's small config: a
+    # 120 px working image needs a lower FAST threshold and looser size
+    # filters
     cfg = StabilizerConfig(past_frames=6, future_frames=4, working_height=120,
                            frame_height=240, frame_width=320,
                            gftt=GFTTConfig(max_features=256),
                            ransac=RansacConfig(num_hypotheses=128),
                            orb=ORBConfig(max_features=512, n_levels=4,
-                                         max_keypoint_size_ratio=0.5, fast_threshold=8))
+                                         max_keypoint_size_ratio=0.5, fast_threshold=8),
+                           sift=SIFTConfig(max_features=256, max_keypoint_size_ratio=0.5))
+    cfg_ecc = dataclasses.replace(cfg, ecc=ECCConfig(enabled=True, max_iters=5))
     frames, _ = render_clip(cfg, 16, seed, dev)
     wh, ww = cfg.working_size
-    for mode, n in ((StabilizationMode.GLOBAL_SMOOTHING, 12),
-                    (StabilizationMode.ORB_FULL_LOCK, 16)):
-        a = Stabilizer(cfg, mode, seed=seed, device=dev)
-        b = Stabilizer(cfg, mode, seed=seed, device="cpu")
+    for mode, c, n in ((StabilizationMode.GLOBAL_SMOOTHING, cfg, 12),
+                       (StabilizationMode.ORB_FULL_LOCK, cfg, 16),
+                       (StabilizationMode.SIFT_FULL_LOCK, cfg_ecc, 16)):
+        a = Stabilizer(c, mode, seed=seed, device=dev)
+        b = Stabilizer(c, mode, seed=seed, device="cpu")
         worst_drift = worst_mean = 0.0
         worst_matches = 0
         for f in frames[:n]:
@@ -594,9 +706,13 @@ def phase_reference(seed: int, dev) -> None:
             worst_mean = max(worst_mean, float((oa.float() - ob.float()).abs().mean()))
             worst_matches = max(worst_matches, abs(int(a.carry.last_lock_matches)
                                                    - int(b.carry.last_lock_matches)))
-            if bool(a.carry.orb_ref.is_set) != bool(b.carry.orb_ref.is_set):
-                raise AssertionError(f"{mode.name}: card and CPU disagree on the reference")
-        print(f"reference {mode.name}: {n} frames 240x320 card vs CPU: worst last_h "
+            for ref_of in ("orb_ref", "sift_ref"):
+                if (bool(getattr(a.carry, ref_of).is_set)
+                        != bool(getattr(b.carry, ref_of).is_set)):
+                    raise AssertionError(f"{mode.name}: card and CPU disagree on the "
+                                         f"{ref_of}")
+        ecc = f", ECC {c.ecc.max_iters} iterations" if c.ecc.enabled else ""
+        print(f"reference {mode.name}{ecc}: {n} frames 240x320 card vs CPU: worst last_h "
               f"drift {worst_drift:.2e} px (< {REF_DRIFT_TOL}), worst mean |out| "
               f"{worst_mean:.3f} (<= {REF_MEAN_U8}), worst |lock matches| "
               f"{worst_matches} (<= {REF_MATCHES})", flush=True)
@@ -618,7 +734,8 @@ def main() -> int:
               "only on a GPU", file=sys.stderr)
         return 2
     # imported after the device check so a bare copy of this script fails there
-    from video_stabilization_tpu_torch.config import StabilizerConfig
+    from video_stabilization_tpu_torch.config import (
+        ECCConfig, StabilizationMode, StabilizerConfig)
     from video_stabilization_tpu_torch.ops import affine_warp as aw
     from video_stabilization_tpu_torch.ops import fast
     from video_stabilization_tpu_torch.utils import cuda_build
@@ -648,18 +765,29 @@ def main() -> int:
     cfg1 = StabilizerConfig(frame_height=1080, frame_width=1920, working_height=360,
                             past_frames=30, future_frames=15)
     sl = phase_slice(cfg1, args.frames, args.lock_frames, args.seed, dev, card)
-    orb = phase_orb(cfg3, args.orb_frames, args.seed, dev, card)
+    orb = phase_lock(cfg3, StabilizationMode.ORB_FULL_LOCK, "config3", args.orb_frames,
+                     args.seed, dev, card)
+    cfg4 = StabilizerConfig(frame_height=1080, frame_width=1920, working_height=360,
+                            past_frames=30, future_frames=15,
+                            ecc=ECCConfig(enabled=True, max_iters=ECC_ITERS))
+    sift = phase_lock(cfg4, StabilizationMode.SIFT_FULL_LOCK, "config4", SIFT_FRAMES,
+                      args.seed, dev, card)
+    phase_ecc_kernel_vs_plain(cfg4, args.seed, dev)
     phase_reference(args.seed, dev)
 
     # launches: each main path's run, counted from 0 just before it; ms,
     # plain_ms and bound_ms are per frame.  The top-level numbers of a kernel
     # are those of the first path that runs it, "paths" holds each path's.
-    print(f"host syncs per steady frame: config 1 {sl['syncs']}, config 3 {orb['syncs']}",
-          flush=True)
+    print(f"host syncs per steady frame: config 1 {sl['syncs']}, config 3 {orb['syncs']}, "
+          f"config 4 {sift['syncs']}", flush=True)
+    def counted(launches: int, run: dict) -> dict:
+        return {"launches": launches, "launches_per_frame": launches / run["frames"]}
+
     warp_paths = {
-        "config1": {"launches": sl["launches"], **kern["config1"]},
-        "config3": {"launches": orb["warp_launches"], **kern["config3"]}}
-    fast_paths = {"config3": {"launches": orb["fast_launches"],
+        "config1": {**counted(sl["launches"], sl), **kern["config1"]},
+        "config3": {**counted(orb["warp_launches"], orb), **kern["config3"]},
+        "config4": {**counted(sift["warp_launches"], sift), **kern["config4"]}}
+    fast_paths = {"config3": {**counted(orb["fast_launches"], orb),
                               **{k: fk[k] for k in ("ms", "plain_ms", "device_ms",
                                                     "bound_ms", "bound_by")}}}
     record = {"kernels": [{

@@ -9,6 +9,7 @@ import pytest
 import video_stabilization_tpu.config as jcfg
 import video_stabilization_tpu_torch.config as tcfg
 from test_engine import small_config
+from torch_threads import one_torch_thread  # noqa: F401
 
 CLASSES = ["GFTTConfig", "LKConfig", "RansacConfig", "ORBConfig", "SIFTConfig",
            "ECCConfig", "PreprocessConfig", "StabilizerConfig"]

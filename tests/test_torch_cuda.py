@@ -1,5 +1,6 @@
 """The CUDA kernels on the card (affine warp, FAST levels): each against its
-plain version, its input checks and its launch count.  Marked ``gpu``:
+plain version, its input checks and its launch count; and ECC on the warp
+kernel against ECC on the plain warp.  Marked ``gpu``:
 skipped without a CUDA card (run on one with
 ``python -m pytest tests/test_torch_cuda.py -m gpu -q --noconftest``)."""
 
@@ -170,3 +171,26 @@ def test_fast_kernel_rejects_bad_inputs(dev):
         fast.fast_levels([x] * (fast.MAX_LEVELS + 1), 20.0, 3)
     with pytest.raises(ValueError):
         fast.fast_levels([x, x.cpu()], 20.0, 3)
+
+
+@pytest.mark.parametrize("theta,tx,ty", [(0.3, 1.5, -0.8), (12, 2.0, -1.0)])
+def test_ecc_kernel_matches_plain_warp(dev, theta, tx, ty):
+    """ECC with the warp kernel equals ECC with the plain warp on the card
+    (``h``, ``rho`` and ``valid`` bit for bit), at 360x640 inside the
+    envelope and from a start outside it; the kernel runs once per warp."""
+    from unittest import mock
+
+    from video_stabilization_tpu_torch.ops import ecc
+
+    ref = frame((1, 360, 640), "planar", dev, seed=3)
+    ref = ref + torch.roll(ref, 1, 0) + torch.roll(ref, 1, 1)     # some smoothness
+    h = torch.from_numpy(rigid(theta, tx, ty)).to(dev)
+    cur = aw.warp_affine_plain(ref, h)
+    h_init = torch.from_numpy(rigid(theta + 0.2, tx + 0.5, ty - 0.5)).to(dev)
+    before = aw.launches
+    k = ecc.ecc_refine_euclidean(ref, cur, h_init, max_iters=30)
+    assert aw.launches == before + 32
+    with mock.patch.object(ecc, "warp_affine", aw.warp_affine_plain):
+        p = ecc.ecc_refine_euclidean(ref, cur, h_init, max_iters=30)
+    assert aw.launches == before + 32
+    assert torch.equal(k.h, p.h) and torch.equal(k.rho, p.rho) and torch.equal(k.valid, p.valid)

@@ -5,13 +5,15 @@ Footage is tests/test_engine.py's small-config clip rendered by the JAX
 simulator; both packages consume the same uint8 frames.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from video_stabilization_tpu.config import StabilizationMode
+from video_stabilization_tpu.config import ECCConfig, StabilizationMode
 from video_stabilization_tpu.engine import Stabilizer as JStabilizer
 from video_stabilization_tpu.engine import make_step_fn
 from video_stabilization_tpu.engine import smoothing_homography as j_smoothing
@@ -24,6 +26,7 @@ from video_stabilization_tpu_torch.engine import (
     stabilize_step)
 from test_engine import (
     FH, FW, np_reference_smoothing, random_rigid_transforms, small_config)
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_FRAMES = 20
 N_ORB_FRAMES = 16
@@ -116,21 +119,34 @@ def test_whole_slice_matches_jax(footage, scenario):
     assert bool(js.carry.accum_active) == bool(ts.carry.accum_active)
 
 
+ORB, SIFT = StabilizationMode.ORB_FULL_LOCK, StabilizationMode.SIFT_FULL_LOCK
+
+
+def ecc_config():
+    """The one ECC-enabled configuration of these tests (the JAX step
+    compiles anew for it): SIFT_FULL_LOCK pinned, so the JAX step traces the
+    SIFT branch only, and ECC with 10 iterations."""
+    return dataclasses.replace(small_config(), ecc=ECCConfig(enabled=True, max_iters=10),
+                               static_mode=int(SIFT))
+
+
 ORB_SCENARIOS = {
-    "orb": [(0, StabilizationMode.ORB_FULL_LOCK)],
-    "orb_recapture": [(0, StabilizationMode.GLOBAL_SMOOTHING),
-                      (3, StabilizationMode.ORB_FULL_LOCK),
-                      (8, StabilizationMode.GLOBAL_SMOOTHING),
-                      (10, StabilizationMode.ORB_FULL_LOCK)],
+    "orb": [(0, ORB)],
+    "orb_recapture": [(0, StabilizationMode.GLOBAL_SMOOTHING), (3, ORB),
+                      (8, StabilizationMode.GLOBAL_SMOOTHING), (10, ORB)],
+}
+SIFT_SCENARIOS = {
+    "sift": (small_config, [(0, SIFT)]),
+    "sift_recapture": (small_config, [(0, StabilizationMode.GLOBAL_SMOOTHING), (3, SIFT),
+                                      (8, StabilizationMode.GLOBAL_SMOOTHING), (10, SIFT)]),
+    "sift_ecc": (ecc_config, [(0, SIFT)]),
 }
 
 
-@pytest.mark.parametrize("scenario", list(ORB_SCENARIOS))
-def test_orb_slice_matches_jax(footage, scenario):
-    """The ORB registration lock, frame by frame in both packages, through
-    mode switches that clear and recapture the reference."""
-    cfg = small_config()
-    plan = ORB_SCENARIOS[scenario]
+def run_lock_scenario(footage, cfg, plan, ref_of: str, scenario: str) -> None:
+    """Both packages' Stabilizer frame by frame through ``plan``'s mode
+    switches: each step agrees, both hold the same reference state, and the
+    lock's good-match counts agree within LOCK_MATCHES."""
     js = JStabilizer(cfg, plan[0][1])
     ts = TStabilizer(config_from_fields(cfg), plan[0][1], device="cpu")
     captured = 0
@@ -143,22 +159,39 @@ def test_orb_slice_matches_jax(footage, scenario):
         tout = ts.stabilize_frame(frame)
         where = f"{scenario} frame {i}"
         assert_step_agrees(js.carry, jout, ts.carry, tout, cfg, where)
-        assert bool(js.carry.orb_ref.is_set) == bool(ts.carry.orb_ref.is_set), where
-        captured += bool(ts.carry.orb_ref.is_set)
+        is_set = bool(getattr(ts.carry, ref_of).is_set)
+        assert bool(getattr(js.carry, ref_of).is_set) == is_set, where
+        captured += is_set
         dm = abs(int(js.carry.last_lock_matches) - int(ts.carry.last_lock_matches))
         assert dm <= LOCK_MATCHES, f"{where}: lock matches differ by {dm}"
     assert captured >= N_ORB_FRAMES // 2
     assert int(ts.carry.last_lock_matches) >= cfg.ransac.min_points
 
 
+@pytest.mark.parametrize("scenario", list(ORB_SCENARIOS))
+def test_orb_slice_matches_jax(footage, scenario):
+    """The ORB registration lock, frame by frame in both packages, through
+    mode switches that clear and recapture the reference."""
+    run_lock_scenario(footage, small_config(), ORB_SCENARIOS[scenario], "orb_ref", scenario)
+
+
+@pytest.mark.parametrize("scenario", list(SIFT_SCENARIOS))
+def test_sift_slice_matches_jax(footage, scenario):
+    """The SIFT registration lock, alone and refined by ECC, frame by frame
+    in both packages, through mode switches that clear and recapture the
+    reference.  SIFT holds the ORB slice's LOCK_MATCHES (measured: equal
+    match counts on every frame of all three scenarios)."""
+    make_cfg, plan = SIFT_SCENARIOS[scenario]
+    run_lock_scenario(footage, make_cfg(), plan, "sift_ref", scenario)
+
+
 @pytest.mark.parametrize("mode", [StabilizationMode.GLOBAL_SMOOTHING,
-                                  StabilizationMode.ACCUMULATED_FULL_LOCK,
-                                  StabilizationMode.ORB_FULL_LOCK])
+                                  StabilizationMode.ACCUMULATED_FULL_LOCK, ORB, SIFT])
 def test_state_carried_across(footage, mode):
     """JAX carry after 8 frames -> carry_from_numpy -> one step in each
     package: isolates per-step divergence from accumulated divergence.  In
-    ORB_FULL_LOCK the carry holds a captured reference, which must come back
-    unchanged through carry_to_numpy."""
+    the registration locks the carry holds a captured reference, which must
+    come back unchanged through carry_to_numpy."""
     cfg = small_config()
     js = JStabilizer(cfg, mode)
     for frame in footage[:8]:
@@ -172,9 +205,10 @@ def test_state_carried_across(footage, mode):
     assert int(jcarry.last_lock_matches) == int(tcarry.last_lock_matches)
     back = carry_to_numpy(tcarry)
     for name, arr in jax_carry_arrays(jcarry).items():
-        if name.startswith(".orb_ref"):
+        if name.startswith((".orb_ref", ".sift_ref")):
             np.testing.assert_array_equal(back[name], arr, err_msg=name)
-    assert bool(back[".orb_ref.is_set"]) == (mode == StabilizationMode.ORB_FULL_LOCK)
+    assert bool(back[".orb_ref.is_set"]) == (mode == ORB)
+    assert bool(back[".sift_ref.is_set"]) == (mode == SIFT)
 
 
 def test_save_carry_layout_loads(footage, tmp_path):
@@ -228,19 +262,24 @@ def test_stabilize_clip_matches_per_frame(footage):
     assert int(a.carry.n) == 6
 
 
-STAGES = {"gray", "pyramid", "lk_track", "inter_frame_fit", "smoothing", "orb_lock",
-          "nearest_downscale", "preprocess", "orb_detect", "match", "lock_ransac",
-          "rotation_split", "warp", "gftt"}
+STAGES = {"gray", "pyramid", "lk_track", "inter_frame_fit", "smoothing",
+          "nearest_downscale", "preprocess", "match", "lock_ransac", "rotation_split",
+          "warp", "gftt"}
+LOCK_STAGES = {ORB: {"orb_lock", "orb_detect"},
+               SIFT: {"sift_lock", "sift_detect", "sift_scale_space", "ecc"}}
 
 
-def test_stage_ranges_only_while_profiling(footage):
+@pytest.mark.parametrize("mode", [ORB, SIFT])
+def test_stage_ranges_only_while_profiling(footage, mode):
     """The step's stage ranges reach the profiler only while
     ``stage_profile.enabled`` is set, and then every stage shows once per
-    ORB_FULL_LOCK frame."""
+    frame of the registration lock (SIFT with ECC)."""
     from video_stabilization_tpu_torch.utils import stage_profile
 
-    ts = TStabilizer(config_from_fields(small_config()), StabilizationMode.ORB_FULL_LOCK,
-                     device="cpu")
+    cfg = small_config()
+    if mode == SIFT:    # two ECC iterations keep the profiled run short
+        cfg = dataclasses.replace(cfg, ecc=ECCConfig(enabled=True, max_iters=2))
+    ts = TStabilizer(config_from_fields(cfg), mode, device="cpu")
     seen = {}
     for on in (False, True):
         stage_profile.enabled = on
@@ -254,4 +293,25 @@ def test_stage_ranges_only_while_profiling(footage):
         seen[on] = {e.key[6:]: e.count for e in prof.key_averages()
                     if e.key.startswith("stage:")}
     assert seen[False] == {}
-    assert seen[True] == {name: 2 for name in STAGES}
+    assert seen[True] == {name: 2 for name in STAGES | LOCK_STAGES[mode]}
+
+
+@pytest.mark.parametrize("mode", [ORB, SIFT])
+def test_capture_frame_is_identity_with_ecc(footage, mode):
+    """With ECC on, the register side also runs on a capture frame, against
+    the empty reference's zero image; ``torch.where`` keeps the capture
+    values: the lock is the identity and nothing in the carry is NaN."""
+    cfg = config_from_fields(dataclasses.replace(ecc_config(), static_mode=None))
+    ts = TStabilizer(cfg, mode, device="cpu")
+    eye = torch.eye(3)
+    for i, frame in enumerate(footage[:3]):
+        if i == 2:       # clear and capture again mid-stream
+            ts.set_stabilization_mode(mode)
+        ts.stabilize_frame(frame)
+        if i in (0, 2):
+            assert torch.equal(ts.carry.lock_prev_h, eye), i
+            assert torch.equal(ts.carry.last_h, eye), i
+            assert int(ts.carry.last_lock_matches) == 0
+        for name, arr in carry_to_numpy(ts.carry).items():
+            if arr.dtype.kind == "f":
+                assert not np.isnan(arr).any(), (i, name)

@@ -27,6 +27,7 @@ from video_stabilization_tpu_torch.ops.gftt import min_eig_response as t_min_eig
 from video_stabilization_tpu_torch.ops.lk_dense import lk_track_dense as t_lk
 from video_stabilization_tpu_torch.ops.pyramid import build_pyramid as t_pyr
 from video_stabilization_tpu_torch.utils import prng
+from torch_threads import one_torch_thread  # noqa: F401
 
 FH, FW, WH, WW = 240, 320, 120, 160
 _j_lk = jax.jit(j_lk, static_argnames="config")

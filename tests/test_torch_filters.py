@@ -16,6 +16,7 @@ from video_stabilization_tpu.ops import filters as jfil
 from video_stabilization_tpu.ops.image import resize_nearest as j_resize_nearest
 from video_stabilization_tpu_torch.ops import filters as tfil
 from video_stabilization_tpu_torch.ops.image import resize_nearest as t_resize_nearest
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = [(120, 160), (101, 133)]   # tile-divisible, and not
 CLAHE_WITHIN = 1.0      # gray levels: rounding ties of the tile blend

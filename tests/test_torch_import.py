@@ -1,5 +1,5 @@
 """The port's import and device boundaries: no JAX, no implicit device, no
-build at import, and the configurations it refuses."""
+build at import, the configurations it refuses, and those it runs now."""
 
 import dataclasses
 import os
@@ -13,6 +13,7 @@ import torch
 from video_stabilization_tpu_torch.config import (
     ECCConfig, GFTTConfig, LKConfig, RansacConfig, StabilizationMode, StabilizerConfig)
 from video_stabilization_tpu_torch.engine import Stabilizer
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -87,32 +88,32 @@ def test_device_is_explicit():
 
 @pytest.mark.parametrize("mode", [StabilizationMode.ORB_FULL_LOCK,
                                   StabilizationMode.SIFT_FULL_LOCK])
-def test_registration_locks_not_ported(mode):
-    """The ORB lock runs; the SIFT lock still raises naming its item."""
+def test_registration_locks_capture_and_clear(mode):
+    """Both registration locks run: the first frame captures the reference,
+    and a mode switch clears it."""
     import numpy as np
 
-    if mode == StabilizationMode.ORB_FULL_LOCK:
-        stab = Stabilizer(small_cfg(), mode, device="cpu")
-        stab.stabilize_frame(np.full((120, 160, 3), 7, np.uint8))
-        assert bool(stab.carry.orb_ref.is_set)
-        stab.set_stabilization_mode(StabilizationMode.GLOBAL_SMOOTHING)
-        stab.set_stabilization_mode(mode)
-        assert not bool(stab.carry.orb_ref.is_set)
-        return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        Stabilizer(small_cfg(), mode, device="cpu")
-    stab = Stabilizer(small_cfg(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        stab.set_stabilization_mode(mode)
+    ref_of = "orb_ref" if mode == StabilizationMode.ORB_FULL_LOCK else "sift_ref"
+    stab = Stabilizer(small_cfg(), mode, device="cpu")
+    stab.stabilize_frame(np.full((120, 160, 3), 7, np.uint8))
+    assert bool(getattr(stab.carry, ref_of).is_set)
+    stab.set_stabilization_mode(StabilizationMode.GLOBAL_SMOOTHING)
+    stab.set_stabilization_mode(mode)
+    assert not bool(getattr(stab.carry, ref_of).is_set)
 
 
-def test_ecc_refused_by_the_lock():
+def test_ecc_enabled_orb_lock_runs():
+    """ECC refinement is no longer refused: an ECC-enabled ORB lock runs,
+    captures its reference and stays finite."""
     import numpy as np
 
-    stab = Stabilizer(small_cfg(ecc=ECCConfig(enabled=True)),
+    stab = Stabilizer(small_cfg(ecc=ECCConfig(enabled=True, max_iters=3)),
                       StabilizationMode.ORB_FULL_LOCK, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        stab.stabilize_frame(np.zeros((120, 160, 3), np.uint8))
+    for v in (0, 9):
+        out = stab.stabilize_frame(np.full((120, 160, 3), v, np.uint8))
+    assert out.shape == (120, 160, 3)
+    assert bool(stab.carry.orb_ref.is_set)
+    assert torch.isfinite(stab.carry.last_h).all()
 
 
 @pytest.mark.parametrize("kw,match", [

@@ -15,6 +15,7 @@ from video_stabilization_tpu_torch.motion import homography as th
 from video_stabilization_tpu_torch.motion.ransac import estimate_similarity_ransac as t_ransac
 from video_stabilization_tpu_torch.motion.similarity import fit_similarity_masked as t_fit
 from video_stabilization_tpu_torch.utils import prng
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("seed", [0, 7, 123456789, 2**32 - 1])

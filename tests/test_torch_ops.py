@@ -20,6 +20,7 @@ from video_stabilization_tpu_torch.ops import gradients as tgrad
 from video_stabilization_tpu_torch.ops import image as timage
 from video_stabilization_tpu_torch.ops import pyramid as tpyr
 from video_stabilization_tpu_torch.ops.warp import warp_perspective as t_warp_perspective
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4       # f32 ops on 0-255 content, same op order in both packages
 WARP_ATOL = 1e-2  # 2-pass resample, position rounding differs (pad offset)

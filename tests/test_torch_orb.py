@@ -29,6 +29,7 @@ from video_stabilization_tpu_torch.sim import (
     DEFAULT_APP_PARAMS, make_default_texture, render_frame)
 from test_engine import small_config
 from test_orb import CFG as ORB_CFG
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the ten level shapes of a 360x640 working image (ops/orb.py level loop)
 LEVEL_SHAPES = [(360, 640), (300, 533), (250, 444), (208, 370), (174, 309),

@@ -8,6 +8,7 @@ import torch
 
 from video_stabilization_tpu import sim as jsim
 from video_stabilization_tpu_torch import sim as tsim
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def jax_traj(n=8, key=5):

@@ -107,7 +107,7 @@ class SIFTConfig:
 class ECCConfig:
     """ECC Euclidean refinement (reference: src/stabilizer.cpp:760-782)."""
 
-    enabled: bool = False               # the port refuses True
+    enabled: bool = False
     max_iters: int = 100
     epsilon: float = 0.001
 

@@ -9,7 +9,8 @@ motion model with dense LK, cell GFTT and batched-hypothesis RANSAC:
   4. ring updates (frames circular, transforms rolled)
   5. smoothing homography Q
   6. lock homography: accumulated (anchor / advance / invert) or the ORB
-     registration lock against the captured reference (``engine/lock.py``)
+     or SIFT registration lock against the captured reference, optionally
+     refined by ECC (``engine/lock.py``)
   7. rotation split into translation and rotation locks
   8. mode switch
   9. translation rescale to full resolution, warp of the presentation frame
@@ -18,12 +19,13 @@ motion model with dense LK, cell GFTT and batched-hypothesis RANSAC:
 The mode is a host ``int`` (``Stabilizer`` keeps it, the carry mirrors it as
 a tensor), so branching on it never waits for the device.  The JAX
 package's data-dependent ``lax.cond`` on small values become
-``torch.where`` over both sides.  The only host reads of a step are the
-five warp-envelope predicates (``ops/affine_warp.py``).
+``torch.where`` over both sides.  On a CUDA card a step reads nothing back
+to the host: the warp kernel decides its envelope branch on the device
+(``ops/affine_warp.py``).
 
-Not ported yet, and refused with ``NotImplementedError``: the SIFT lock,
-ECC refinement, the non-rigid motion models, the host-estimator split
-(``ext_motion``) and the ``reference_compat`` referee paths.
+Not ported yet, and refused with ``NotImplementedError``: the non-rigid
+motion models, the host-estimator split (``ext_motion``) and the
+``reference_compat`` referee paths.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import numpy as np
 import torch
 
 from video_stabilization_tpu_torch.config import StabilizationMode, StabilizerConfig
-from video_stabilization_tpu_torch.engine.lock import orb_lock
+from video_stabilization_tpu_torch.engine.lock import orb_lock, sift_lock
 from video_stabilization_tpu_torch.engine.smoothing import smoothing_homography
 from video_stabilization_tpu_torch.engine.state import EngineCarry, init_carry
 from video_stabilization_tpu_torch.motion.homography import (
@@ -61,13 +63,6 @@ ACCUM_MODES = (
 )
 
 
-def check_mode(mode: int) -> None:
-    """Raise for the modes the port does not run yet."""
-    if int(mode) == StabilizationMode.SIFT_FULL_LOCK:
-        raise NotImplementedError(
-            "SIFT_FULL_LOCK is not ported yet (ROADMAP Queue 1 item 12)")
-
-
 def check_config(config: StabilizerConfig) -> None:
     """Raise for the configurations the port does not run yet."""
     if config.reference_compat:
@@ -81,8 +76,6 @@ def check_config(config: StabilizerConfig) -> None:
         raise NotImplementedError(
             f"ransac.motion_model={config.ransac.motion_model!r} is not ported yet "
             "(ROADMAP Queue 1 item 13)")
-    if config.static_mode is not None:
-        check_mode(config.static_mode)
 
 
 def _rotation_about(theta: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
@@ -127,7 +120,6 @@ def stabilize_step(
     check_config(config)
     if config.static_mode is not None:
         mode = int(config.static_mode)
-    check_mode(mode)
 
     dev = frame.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -182,9 +174,10 @@ def stabilize_step(
         h_smooth = smoothing_homography(transforms, tvalid, pres, num_tr,
                                         config.reference_compat)
 
-    # 6. lock: the ORB registration lock, or the accumulated lock (anchor on
-    # entry, then advance by the transform into the new presentation frame)
-    orb_ref, lock_prev_h = carry.orb_ref, carry.lock_prev_h
+    # 6. lock: a registration lock (ORB or SIFT), or the accumulated lock
+    # (anchor on entry, then advance by the transform into the new
+    # presentation frame)
+    orb_ref, sift_ref, lock_prev_h = carry.orb_ref, carry.sift_ref, carry.lock_prev_h
     lock_matches = torch.zeros((), dtype=torch.int32, device=dev)
     accum_h = eye
     accum_active = torch.zeros((), dtype=torch.bool, device=dev)
@@ -193,6 +186,11 @@ def stabilize_step(
             res = orb_lock(pres_frame, carry.orb_ref, carry.lock_prev_h, k_lock, config)
         h_lock, orb_ref, lock_prev_h, lock_matches = (res.h_lock, res.ref, res.prev_h,
                                                       res.n_matches)
+    elif mode == StabilizationMode.SIFT_FULL_LOCK:
+        with stage("sift_lock"):
+            res = sift_lock(pres_frame, carry.sift_ref, carry.lock_prev_h, k_lock, config)
+        h_lock, sift_ref, lock_prev_h, lock_matches = (res.h_lock, res.ref, res.prev_h,
+                                                       res.n_matches)
     else:
         if mode in ACCUM_MODES:
             advanced = (n_after - 1 - future) >= 1
@@ -216,6 +214,7 @@ def stabilize_step(
         StabilizationMode.GLOBAL_SMOOTHING: h_smooth,
         StabilizationMode.ACCUMULATED_FULL_LOCK: h_lock,
         StabilizationMode.ORB_FULL_LOCK: h_lock,
+        StabilizationMode.SIFT_FULL_LOCK: h_lock,
         StabilizationMode.TRANSLATION_LOCK: h_translation_lock,
         StabilizationMode.ROTATION_LOCK: h_rotation_lock,
     }[StabilizationMode(mode)]
@@ -250,7 +249,7 @@ def stabilize_step(
         accum_h=accum_h,
         accum_active=accum_active,
         orb_ref=orb_ref,
-        sift_ref=carry.sift_ref,
+        sift_ref=sift_ref,
         lock_prev_h=lock_prev_h,
         last_h=h_stabilize,
         last_inliers=ransac.num_inliers,
@@ -278,14 +277,12 @@ class Stabilizer:
             raise RuntimeError(f"Stabilizer: device {device!r} requested but CUDA "
                                "is not available")
         check_config(config)
-        check_mode(mode)
         self.config = config
         self._mode = int(mode)
         self.carry = init_carry(config, self._mode, prng.key(seed), self.device)
 
     def set_stabilization_mode(self, mode: StabilizationMode) -> None:
         """Switch modes; clears lock state, keeps the frame/transform window."""
-        check_mode(mode)
         dev = self.device
         eye = torch.eye(3, dtype=torch.float32, device=dev)
 

@@ -22,8 +22,7 @@ from video_stabilization_tpu_torch.config import StabilizerConfig
 
 @dataclass
 class RegistrationRef:
-    """Reference-frame features of the ORB/SIFT locks (the SIFT one stays
-    empty in this port)."""
+    """Reference-frame features of the ORB/SIFT locks."""
 
     points: torch.Tensor   # (N, 2) f32
     desc: torch.Tensor     # (N, D) int8 (ORB) / f32 (SIFT)

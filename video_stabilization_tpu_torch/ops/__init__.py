@@ -19,7 +19,11 @@ from video_stabilization_tpu_torch.ops.image import (  # noqa: F401
 )
 from video_stabilization_tpu_torch.ops.lk import LKResult, lk_track  # noqa: F401
 from video_stabilization_tpu_torch.ops.lk_dense import lk_track_dense  # noqa: F401
-from video_stabilization_tpu_torch.ops.match import Matches, match_hamming_knn  # noqa: F401
+from video_stabilization_tpu_torch.ops.match import (  # noqa: F401
+    Matches,
+    match_hamming_knn,
+    match_l2,
+)
 from video_stabilization_tpu_torch.ops.orb import ORBFeatures, orb_detect_and_compute  # noqa: F401
 from video_stabilization_tpu_torch.ops.pyramid import build_pyramid, pyr_down  # noqa: F401
 from video_stabilization_tpu_torch.ops.warp import warp_perspective  # noqa: F401

@@ -1,20 +1,22 @@
 """Per-stage host time and device time of the port's per-frame step.
 
-    python -m video_stabilization_tpu_torch.utils.stage_profile [--config {1,3}]
+    python -m video_stabilization_tpu_torch.utils.stage_profile [--config {1,3,4}]
         [--frames N] [--warm N] [--seed N]
 
 Counterpart of the JAX package's ``utils/stage_profile.py`` for one CUDA
 card.  Config 1 is 1080x1920 frames in GLOBAL_SMOOTHING, config 3 is
-720x1280 frames in ORB_FULL_LOCK, both at working height 360 with a
-30 + 1 + 15 window.  The step and the ORB lock mark their stages with
+720x1280 frames in ORB_FULL_LOCK, config 4 is 1080x1920 frames in
+SIFT_FULL_LOCK with ECC refinement (30 iterations), all at working height
+360 with a 30 + 1 + 15 window (``bench.py``'s configurations).  The step
+and the locks mark their stages with
 :func:`stage`, which opens a ``stage:<name>`` profiler range only while
 this tool profiles (``enabled``) and costs one call otherwise.  On shaky
 simulator footage rendered on the card it runs
 ``--warm`` frames, times ``--frames`` frames with CUDA events, then runs
 ``--frames`` more under ``torch.profiler`` and prints per frame: the
 unprofiled ms, the device-busy ms (kernel time) and idle share, the kernel
-count, the host ms of each stage, and the device time of the heaviest
-kernels and of the hand-written ones.  It needs a CUDA card.
+count, the host ms, device events and device ms of each stage, and the
+device time of the heaviest kernels and of the hand-written ones.  It needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -45,6 +47,19 @@ def _device_us(evt) -> float:
                  or getattr(evt, "self_cuda_time_total", 0.0))
 
 
+def _stage_device_events(prof) -> dict:
+    """{"stage:<name>": device events (kernels, copies, fills) launched
+    inside that stage's ranges}, nested stages included."""
+    def under(e):
+        return len(e.kernels) + sum(under(c) for c in e.cpu_children)
+
+    counts: dict = {}
+    for e in prof.events():
+        if e.name.startswith("stage:") and e.device_type == torch.autograd.DeviceType.CPU:
+            counts[e.name] = counts.get(e.name, 0) + under(e)
+    return counts
+
+
 def footage(cfg, n_frames: int, seed: int, dev) -> torch.Tensor:
     """(T, H, W, 3) uint8 shaky simulator frames rendered on ``dev``."""
     from video_stabilization_tpu_torch.sim import (
@@ -60,11 +75,12 @@ def footage(cfg, n_frames: int, seed: int, dev) -> torch.Tensor:
 
 
 def main() -> int:
-    from video_stabilization_tpu_torch.config import StabilizationMode, StabilizerConfig
+    from video_stabilization_tpu_torch.config import (
+        ECCConfig, StabilizationMode, StabilizerConfig)
     from video_stabilization_tpu_torch.engine import Stabilizer
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", type=int, choices=(1, 3), default=3)
+    ap.add_argument("--config", type=int, choices=(1, 3, 4), default=3)
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--warm", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
@@ -74,9 +90,11 @@ def main() -> int:
         return 2
 
     size, mode = {1: ((1080, 1920), StabilizationMode.GLOBAL_SMOOTHING),
-                  3: ((720, 1280), StabilizationMode.ORB_FULL_LOCK)}[args.config]
+                  3: ((720, 1280), StabilizationMode.ORB_FULL_LOCK),
+                  4: ((1080, 1920), StabilizationMode.SIFT_FULL_LOCK)}[args.config]
     cfg = StabilizerConfig(frame_height=size[0], frame_width=size[1], working_height=360,
-                           past_frames=30, future_frames=15)
+                           past_frames=30, future_frames=15,
+                           ecc=ECCConfig(enabled=args.config == 4, max_iters=30))
     dev = torch.device("cuda", 0)
     n = args.frames
     frames = footage(cfg, args.warm + 2 * n, args.seed, dev)
@@ -126,9 +144,12 @@ def main() -> int:
           "events per frame")
     stages = [e for e in events if e.key.startswith("stage:")
               and e.device_type == torch.autograd.DeviceType.CPU]
+    launched = _stage_device_events(prof)
     for e in sorted(stages, key=lambda e: e.cpu_time_total, reverse=True):
         print(f"  host {e.key[6:]}: {e.cpu_time_total / 1e3 / n:.3f} ms/frame "
-              f"({e.count / n:.0f} calls/frame)")
+              f"({e.count / n:.0f} calls/frame); its device events "
+              f"{launched.get(e.key, 0) / n:.0f}/frame, {e.device_time_total / 1e3 / n:.4f} "
+              "ms/frame")
     for e in sorted(kernels, key=_device_us, reverse=True)[:12]:
         print(f"  device {_device_us(e) / 1e3 / n:.4f} ms/frame, {e.count / n:.1f}/frame: "
               f"{e.key[:90]}")
