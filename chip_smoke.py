@@ -36,7 +36,13 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    frame pair (equal, and moved from the identity);
 7. reference: the step on a small clip, on the card and on the CPU (plain
    versions), frame for frame, in GLOBAL_SMOOTHING, in ORB_FULL_LOCK and in
-   SIFT_FULL_LOCK with ECC.
+   SIFT_FULL_LOCK with ECC;
+8. the offline slices: the offline chunk step (``engine/offline.py``) in
+   chunks of 16 on the footage of the config-1 (GLOBAL_SMOOTHING part), ORB
+   and SIFT slices (config 4: its first 32 frames, a depth cut); launches
+   per chunk, host syncs of the warm-up chunk, outputs against the streaming
+   slice's frame by frame, the slice's quality bounds, ms/frame and device
+   events per frame beside the streaming step's.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -102,6 +108,11 @@ ECC_IMPROVED = 0.75      # share of registered frames on which ECC raised rho
 REF_DRIFT_TOL = 0.05     # px, card vs CPU per-frame last_h
 REF_MEAN_U8 = 0.5        # mean |card - CPU| output, u8 levels
 REF_MATCHES = 2          # |card - CPU| lock matches per frame
+OFFLINE_CHUNK = 16       # the offline form's chunk (bench.py's throughput path)
+SIFT_OFFLINE_FRAMES = 32  # config-4 offline frames: a depth cut from 64 (smoke time)
+OFFLINE_DIFFER = 0.02    # per frame, share of pixels where offline != streaming
+OFFLINE_OFF_BY_MORE = 0.001  # per frame, share off by more than one level
+STREAM_PROFILED = 4      # streaming frames profiled for device events per frame
 
 
 def rigid(theta_deg: float, tx: float = 0.0, ty: float = 0.0) -> np.ndarray:
@@ -346,9 +357,9 @@ def count_syncs(fn):
                  if "called a synchronizing" in str(w.message)]
 
 
-def report_syncs(tag: str, where: list) -> None:
+def report_syncs(tag: str, where: list, unit: str = "steady frame") -> None:
     names = sorted(set(where))
-    print(f"{tag}: {len(where)} synchronizing calls in one steady frame under "
+    print(f"{tag}: {len(where)} synchronizing calls in one {unit} under "
           f"set_sync_debug_mode('warn')" + (f": {names}" if names else ""), flush=True)
     bad = [n for n in names if "affine_warp.py" in n or "ops/fast.py" in n]
     if bad:
@@ -483,7 +494,7 @@ def phase_slice(cfg, n_smooth: int, n_lock: int, seed: int, dev, card: str) -> d
     if not j_lock < LOCK_VS_IDEAL * j_ideal:
         raise AssertionError(f"lock jitter {j_lock} !< {LOCK_VS_IDEAL} x ideal {j_ideal}")
     return {"launches": launches, "frames": n_total, "ms_frame": ms_frame,
-            "syncs": len(syncs)}
+            "syncs": len(syncs), "footage": (frames, traj), "outs": outs}
 
 
 def phase_lock(cfg, mode, path: str, n_frames: int, seed: int, dev, card: str) -> dict:
@@ -611,7 +622,8 @@ def phase_lock(cfg, mode, path: str, n_frames: int, seed: int, dev, card: str) -
         raise AssertionError(f"{tag}: ECC raised rho on only {n_ecc_improved} of "
                              f"{n_reg} registered frames")
     return {"fast_launches": fast_launches, "warp_launches": warp_launches,
-            "frames": n_frames, "ms_frame": ms_frame, "syncs": len(syncs)}
+            "frames": n_frames, "ms_frame": ms_frame, "syncs": len(syncs),
+            "footage": (frames, traj.to("cpu")), "outs": outs}
 
 
 def phase_ecc_kernel_vs_plain(cfg, seed: int, dev) -> None:
@@ -721,6 +733,180 @@ def phase_reference(seed: int, dev) -> None:
             raise AssertionError(f"{mode.name}: card and CPU disagree on the small clip")
 
 
+def device_events(fn) -> int:
+    """Device events (kernels, copies, fills) that ``fn`` launches, counted
+    by ``torch.profiler``."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def phase_offline(cfg, mode, path: str, n_frames: int, seed: int, dev, card: str,
+                  stream: dict, depth_cut: str = "") -> dict:
+    """The offline chunk step (``engine/offline.py``) in OFFLINE_CHUNK-frame
+    chunks over the first ``n_frames`` frames of a streaming slice's footage
+    (``stream``, the slice's result), from a fresh carry with the slice's
+    seed: launches per chunk, host syncs of the warm-up chunk, outputs
+    against the slice's frame by frame, the slice's quality bounds, ms/frame
+    and device events per frame beside the streaming step's.  ``depth_cut``
+    says why ``n_frames`` is fewer than the slice's, if it is."""
+    import dataclasses
+    from unittest import mock
+
+    from video_stabilization_tpu_torch.config import StabilizationMode
+    from video_stabilization_tpu_torch.engine import (
+        Stabilizer, init_carry, make_offline_fn, offline)
+    from video_stabilization_tpu_torch.ops import affine_warp as aw
+    from video_stabilization_tpu_torch.ops import fast
+    from video_stabilization_tpu_torch.sim import inter_frame_homography
+    from video_stabilization_tpu_torch.utils import prng
+
+    k = OFFLINE_CHUNK
+    tag = f"offline {path}"
+    if n_frames < 2 * k:
+        raise ValueError(f"{tag}: {n_frames} frames are fewer than two chunks of {k}")
+    all_frames, traj = stream["footage"]
+    frames = all_frames[:n_frames]
+    hf, wf = cfg.frame_height, cfg.frame_width
+    wh, ww = cfg.working_size
+    delay = cfg.future_frames
+    locked = mode in (StabilizationMode.ORB_FULL_LOCK, StabilizationMode.SIFT_FULL_LOCK)
+    warp_per_frame = LAUNCHES_PER_FRAME[path]
+    fast_per_frame = (FAST_LAUNCHES_PER_FRAME if mode == StabilizationMode.ORB_FULL_LOCK
+                      else 0)
+    cfg_off = dataclasses.replace(cfg, static_mode=int(mode))
+    step = make_offline_fn(cfg_off)
+    carry = init_carry(cfg_off, int(mode), prng.key(seed), dev)
+
+    # each frame's lock matches, kept on the device and read once after
+    register = offline._registration_lock
+    matches = []
+
+    def register_kept(*a, **kw):
+        res = register(*a, **kw)
+        matches.append(res.n_matches)
+        return res
+
+    counter = aw.fallback_counter(dev)
+    # one event at each boundary from the end of the warm-up chunk on
+    events = []
+    outs, est, per_chunk = [], [], []
+    counter.zero_()
+    aw.launches = 0
+    fast.launches = 0
+    with mock.patch.object(offline, "_registration_lock", register_kept):
+        for c, i in enumerate(range(0, n_frames, k)):
+            part = frames[i:i + k]
+            w0, f0 = aw.launches, fast.launches
+            if c == 0:     # the warm-up chunk, untimed: syncs checked
+                (carry, (out, _)), syncs = count_syncs(lambda: step(carry, part))
+                torch.cuda.synchronize()
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+                t0 = time.perf_counter()
+            else:
+                carry, (out, _) = step(carry, part)
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+            outs.append(out)
+            est.append(carry.transforms[-len(part):].clone())
+            per_chunk.append((len(part), aw.launches - w0, fast.launches - f0))
+        torch.cuda.synchronize()
+    t_host = time.perf_counter() - t0
+    warp_launches, fast_launches = aw.launches, fast.launches
+    fallbacks = int(counter)          # the one read of the device's count
+
+    out_o = torch.cat(outs)
+    if out_o.shape != (n_frames, hf, wf, 3) or out_o.dtype != torch.uint8:
+        raise AssertionError(f"{tag}: bad outputs {tuple(out_o.shape)} {out_o.dtype}")
+    for size, n_warp, n_fast in per_chunk:
+        if (n_warp, n_fast) != (size * warp_per_frame, size * fast_per_frame):
+            raise AssertionError(f"{tag}: a chunk of {size} launched the warp {n_warp} and "
+                                 f"FAST {n_fast} times, not {size} x {warp_per_frame} and "
+                                 f"{size} x {fast_per_frame}")
+    report_syncs(tag, syncs, "chunk (the warm-up one, untimed)")
+
+    # outputs against the streaming step's, frame by frame
+    out_s = torch.stack(stream["outs"][:n_frames])
+    diff = (out_o.to(torch.int16) - out_s.to(torch.int16)).abs()
+    differ = float((diff > 0).float().mean((1, 2, 3)).max())
+    off_more = float((diff > 1).float().mean((1, 2, 3)).max())
+
+    crop = (slice(hf // 4, 3 * hf // 4), slice(wf // 4, 3 * wf // 4))
+    if locked:
+        registered = [int(m) for m in matches[delay + 1:]]
+        min_points = cfg.ransac.min_points
+        matched = sum(m >= min_points for m in registered) / len(registered)
+        stop = n_frames - delay
+        bound = ORB_JITTER if mode == StabilizationMode.ORB_FULL_LOCK else SIFT_JITTER
+        j_raw = jitter(frames[1:stop], crop)
+        j_lock = jitter(out_o[delay + 1:], crop)
+        j_ideal = jitter(ideal_lock(frames, traj, 0, stop)[1:], crop)
+        quality = (f"lock matches min {min(registered)} median "
+                   f"{statistics.median(registered)}; >= {min_points} on {matched:.3f} of "
+                   f"{len(registered)} registered frames (>= {ORB_MATCHED}); jitter raw "
+                   f"{j_raw:.3f} locked {j_lock:.3f} (ratio {j_lock / j_raw:.3f} < {bound}), "
+                   f"lock/ideal {j_lock / j_ideal:.3f} (<= {LOCK_VS_IDEAL})")
+        good = (matched >= ORB_MATCHED and j_lock < bound * j_raw
+                and j_lock <= LOCK_VS_IDEAL * j_ideal)
+    else:
+        hs_est = [h.double().cpu().numpy() for h in torch.cat(est)[1:]]
+        hs_true = [inter_frame_homography(traj[i], traj[i + 1], wh, ww).double().numpy()
+                   for i in range(n_frames - 1)]
+        drift = corner_drift(hs_est, hs_true, ww, wh)
+        j_raw = jitter(frames[10:n_frames - delay], crop)
+        j_smooth = jitter(out_o[10 + delay:], crop)
+        quality = (f"inter-frame corner drift {drift:.4f} px (< {DRIFT_TOL}); jitter raw "
+                   f"{j_raw:.3f} smoothed {j_smooth:.3f} (ratio {j_smooth / j_raw:.3f} < "
+                   f"{SMOOTH_JITTER})")
+        good = drift < DRIFT_TOL and j_smooth < SMOOTH_JITTER * j_raw
+
+    # device events per frame: one more chunk (the last one fed again: the
+    # launches do not depend on the content), and the streaming step over a
+    # few frames after two of warm-up
+    state = {"carry": carry}
+
+    def one_chunk():
+        state["carry"], _ = step(state["carry"], frames[-k:])
+
+    ev_offline = device_events(one_chunk) / k
+    stab = Stabilizer(cfg, mode, seed=seed, device=dev)
+    for f in frames[:2]:
+        stab.stabilize_frame(f)
+    ev_stream = device_events(lambda: [stab.stabilize_frame(f) for f in
+                                       frames[2:2 + STREAM_PROFILED]]) / STREAM_PROFILED
+
+    steady = n_frames - per_chunk[0][0]
+    ms_frame = events[0].elapsed_time(events[-1]) / steady
+    ms_chunks = [a.elapsed_time(b) / size
+                 for a, b, (size, _, _) in zip(events, events[1:], per_chunk[1:])]
+    print(f"{tag}: {n_frames} {mode.name} frames {hf}x{wf} in chunks of {k}{depth_cut}; warp "
+          f"launches {warp_launches} ({warp_per_frame}/frame, {k * warp_per_frame}/chunk), "
+          f"fast launches {fast_launches} ({fast_per_frame}/frame), warps outside the "
+          f"envelope {fallbacks} (device count)", flush=True)
+    print(f"{tag}: vs the streaming step's outputs: per frame at most {differ:.5f} of pixels "
+          f"differ (<= {OFFLINE_DIFFER}), {off_more:.6f} by more than one level (<= "
+          f"{OFFLINE_OFF_BY_MORE})", flush=True)
+    print(f"{tag}: {quality}", flush=True)
+    print(f"{tag}: {ms_frame:.3f} ms/frame (CUDA events, {steady} frames in the chunks after "
+          f"the warm-up one; per chunk {[round(t, 3) for t in ms_chunks]}), host "
+          f"{1e3 * t_host / steady:.3f} ms/frame; streaming {stream['ms_frame']:.3f} "
+          f"ms/frame; device events per frame {ev_offline:.0f} offline (one chunk) vs "
+          f"{ev_stream:.0f} streaming ({STREAM_PROFILED} frames), torch.profiler; {card}",
+          flush=True)
+    if not (differ <= OFFLINE_DIFFER and off_more <= OFFLINE_OFF_BY_MORE):
+        raise AssertionError(f"{tag}: outputs differ from the streaming step's: {differ} of "
+                             f"pixels, {off_more} by more than one level")
+    if not good:
+        raise AssertionError(f"{tag}: outside the streaming slice's bounds: {quality}")
+    return {"launches": warp_launches, "fast_launches": fast_launches, "frames": n_frames,
+            "ms_frame": ms_frame, "syncs": len(syncs), "events_per_frame": ev_offline,
+            "stream_events_per_frame": ev_stream}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -774,22 +960,34 @@ def main() -> int:
                       args.seed, dev, card)
     phase_ecc_kernel_vs_plain(cfg4, args.seed, dev)
     phase_reference(args.seed, dev)
+    off1 = phase_offline(cfg1, StabilizationMode.GLOBAL_SMOOTHING, "config1", args.frames,
+                         args.seed, dev, card, sl)
+    off3 = phase_offline(cfg3, StabilizationMode.ORB_FULL_LOCK, "config3", args.orb_frames,
+                         args.seed, dev, card, orb)
+    off4 = phase_offline(cfg4, StabilizationMode.SIFT_FULL_LOCK, "config4",
+                         SIFT_OFFLINE_FRAMES, args.seed, dev, card, sift,
+                         f" (the first {SIFT_OFFLINE_FRAMES} of the slice's {SIFT_FRAMES}: "
+                         "a depth cut that keeps the smoke within its time)")
 
     # launches: each main path's run, counted from 0 just before it; ms,
     # plain_ms and bound_ms are per frame.  The top-level numbers of a kernel
     # are those of the first path that runs it, "paths" holds each path's.
     print(f"host syncs per steady frame: config 1 {sl['syncs']}, config 3 {orb['syncs']}, "
-          f"config 4 {sift['syncs']}", flush=True)
+          f"config 4 {sift['syncs']}; per offline chunk (the warm-up one): {off1['syncs']}, "
+          f"{off3['syncs']}, {off4['syncs']}", flush=True)
     def counted(launches: int, run: dict) -> dict:
         return {"launches": launches, "launches_per_frame": launches / run["frames"]}
 
     warp_paths = {
         "config1": {**counted(sl["launches"], sl), **kern["config1"]},
         "config3": {**counted(orb["warp_launches"], orb), **kern["config3"]},
-        "config4": {**counted(sift["warp_launches"], sift), **kern["config4"]}}
-    fast_paths = {"config3": {**counted(orb["fast_launches"], orb),
-                              **{k: fk[k] for k in ("ms", "plain_ms", "device_ms",
-                                                    "bound_ms", "bound_by")}}}
+        "config4": {**counted(sift["warp_launches"], sift), **kern["config4"]},
+        "offline_config1": {**counted(off1["launches"], off1), **kern["config1"]},
+        "offline_config3": {**counted(off3["launches"], off3), **kern["config3"]},
+        "offline_config4": {**counted(off4["launches"], off4), **kern["config4"]}}
+    fast_times = {k: fk[k] for k in ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by")}
+    fast_paths = {"config3": {**counted(orb["fast_launches"], orb), **fast_times},
+                  "offline_config3": {**counted(off3["fast_launches"], off3), **fast_times}}
     record = {"kernels": [{
         "name": "affine_warp",
         "route": "cuda",

@@ -1,6 +1,6 @@
 """The CUDA kernels on the card (affine warp, FAST levels): each against its
-plain version, its input checks and its launch count; and ECC on the warp
-kernel against ECC on the plain warp.  Marked ``gpu``:
+plain version, its input checks and its launch count; and ECC and the
+offline chunk step on the warp kernel against the same on the plain warp.  Marked ``gpu``:
 skipped without a CUDA card (run on one with
 ``python -m pytest tests/test_torch_cuda.py -m gpu -q --noconftest``)."""
 
@@ -194,3 +194,53 @@ def test_ecc_kernel_matches_plain_warp(dev, theta, tx, ty):
         p = ecc.ecc_refine_euclidean(ref, cur, h_init, max_iters=30)
     assert aw.launches == before + 32
     assert torch.equal(k.h, p.h) and torch.equal(k.rho, p.rho) and torch.equal(k.valid, p.valid)
+
+
+@pytest.mark.parametrize("mode", ["GLOBAL_SMOOTHING", "SIFT_FULL_LOCK"])
+def test_offline_kernel_matches_plain_warp(dev, mode):
+    """The offline chunk step on the card with the warp kernel equals the
+    same step on the card with the plain warp in its place (LK, ECC and the
+    output warp), outputs and carry bit for bit; K = 4 over 8 frames of a
+    240x320 clip, SIFT with 5 ECC iterations.  Each frame launches the
+    kernel 5 times (SIFT: 5 + 7 ECC warps)."""
+    from unittest import mock
+
+    from video_stabilization_tpu_torch.config import (
+        ECCConfig, SIFTConfig, StabilizationMode, StabilizerConfig)
+    from video_stabilization_tpu_torch.engine import (
+        init_carry, stabilize_clip_offline, stabilizer)
+    from video_stabilization_tpu_torch.ops import ecc, lk_dense
+    from video_stabilization_tpu_torch.sim import (
+        DEFAULT_APP_PARAMS, make_default_texture, render_frame, shake_trajectory)
+    from video_stabilization_tpu_torch.utils import prng
+
+    m = StabilizationMode[mode]
+    cfg = StabilizerConfig(past_frames=4, future_frames=2, working_height=120,
+                           frame_height=240, frame_width=320,
+                           sift=SIFTConfig(max_features=256, max_keypoint_size_ratio=0.5),
+                           ecc=ECCConfig(enabled=m == StabilizationMode.SIFT_FULL_LOCK,
+                                         max_iters=5),
+                           static_mode=int(m))
+    rng = np.random.default_rng(0)
+    tex = torch.from_numpy(make_default_texture(rng, 256)).to(dev)
+    traj = shake_trajectory(rng.standard_normal((8, 3)), rng.standard_normal(8),
+                            DEFAULT_APP_PARAMS, pos_amplitude=0.004, roll_amplitude=0.3,
+                            device=dev)
+    frames = torch.stack([render_frame(tex, traj[i], 240, 320) for i in range(8)])
+
+    def run():
+        carry = init_carry(cfg, int(m), prng.key(3), dev)
+        return stabilize_clip_offline(carry, frames, cfg, chunk=4)
+
+    before = aw.launches
+    c_k, out_k = run()
+    per_frame = 5 + (cfg.ecc.max_iters + 2 if cfg.ecc.enabled else 0)
+    assert aw.launches - before == per_frame * 8
+    with mock.patch.object(stabilizer, "warp_affine", aw.warp_affine_plain), \
+            mock.patch.object(lk_dense, "warp_affine", aw.warp_affine_plain), \
+            mock.patch.object(ecc, "warp_affine", aw.warp_affine_plain):
+        c_p, out_p = run()
+    assert aw.launches - before == per_frame * 8
+    assert torch.equal(out_k, out_p)
+    for name in ("last_h", "transforms", "lock_prev_h", "corners_prev"):
+        assert torch.equal(getattr(c_k, name), getattr(c_p, name)), name

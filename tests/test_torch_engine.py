@@ -267,33 +267,53 @@ STAGES = {"gray", "pyramid", "lk_track", "inter_frame_fit", "smoothing",
           "warp", "gftt"}
 LOCK_STAGES = {ORB: {"orb_lock", "orb_detect"},
                SIFT: {"sift_lock", "sift_detect", "sift_scale_space", "ecc"}}
+# the offline chunk's stages (once per chunk) and the lock's own (per frame)
+OFFLINE_STAGES = {"gray_pyramid", "gftt", "lk", "fit", "smoothing", "lock", "lock_detect",
+                  "lock_register", "rotation_split", "warp"}
+OFFLINE_LOCK_STAGES = {"nearest_downscale", "preprocess", "orb_detect", "match",
+                       "lock_ransac"}
 
 
-@pytest.mark.parametrize("mode", [ORB, SIFT])
+@pytest.mark.parametrize("mode", [ORB, SIFT, "offline_orb"])
 def test_stage_ranges_only_while_profiling(footage, mode):
     """The step's stage ranges reach the profiler only while
     ``stage_profile.enabled`` is set, and then every stage shows once per
-    frame of the registration lock (SIFT with ECC)."""
-    from video_stabilization_tpu_torch.utils import stage_profile
+    frame of the registration lock (SIFT with ECC); in an offline ORB chunk
+    of two frames the chunk's stages show once and the lock's twice."""
+    from video_stabilization_tpu_torch.engine import init_carry, offline_chunk_step
+    from video_stabilization_tpu_torch.utils import prng, stage_profile
 
+    chunked = mode == "offline_orb"
+    if chunked:
+        mode = ORB
     cfg = small_config()
     if mode == SIFT:    # two ECC iterations keep the profiled run short
         cfg = dataclasses.replace(cfg, ecc=ECCConfig(enabled=True, max_iters=2))
+    tcfg = config_from_fields(dataclasses.replace(cfg, static_mode=int(mode)))
     ts = TStabilizer(config_from_fields(cfg), mode, device="cpu")
+    carry = init_carry(tcfg, int(mode), prng.key(0), "cpu")
     seen = {}
     for on in (False, True):
         stage_profile.enabled = on
         try:
             with torch.profiler.profile(
                     activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-                for frame in footage[:2]:
-                    ts.stabilize_frame(frame)
+                if chunked:
+                    carry, _ = offline_chunk_step(carry, torch.from_numpy(footage[:2]), tcfg)
+                else:
+                    for frame in footage[:2]:
+                        ts.stabilize_frame(frame)
         finally:
             stage_profile.enabled = False
         seen[on] = {e.key[6:]: e.count for e in prof.key_averages()
                     if e.key.startswith("stage:")}
     assert seen[False] == {}
-    assert seen[True] == {name: 2 for name in STAGES | LOCK_STAGES[mode]}
+    if chunked:
+        want = {**{name: 1 for name in OFFLINE_STAGES},
+                **{name: 2 for name in OFFLINE_LOCK_STAGES}}
+    else:
+        want = {name: 2 for name in STAGES | LOCK_STAGES[mode]}
+    assert seen[True] == want
 
 
 @pytest.mark.parametrize("mode", [ORB, SIFT])

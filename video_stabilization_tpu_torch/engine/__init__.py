@@ -1,4 +1,5 @@
-"""The stabilization engine: carry, per-frame step, smoothing, modes."""
+"""The stabilization engine: carry, per-frame step, offline chunks, smoothing,
+modes."""
 
 from video_stabilization_tpu_torch.engine.checkpoint import (  # noqa: F401
     carry_from_numpy,
@@ -8,6 +9,11 @@ from video_stabilization_tpu_torch.engine.lock import (  # noqa: F401
     LockResult,
     orb_lock,
     sift_lock,
+)
+from video_stabilization_tpu_torch.engine.offline import (  # noqa: F401
+    make_offline_fn,
+    offline_chunk_step,
+    stabilize_clip_offline,
 )
 from video_stabilization_tpu_torch.engine.smoothing import smoothing_homography  # noqa: F401
 from video_stabilization_tpu_torch.engine.stabilizer import (  # noqa: F401

@@ -47,7 +47,9 @@ def carry_from_numpy(arrays: Dict[str, np.ndarray], device) -> EngineCarry:
         a = np.asarray(arrays[name])
         if name == ".key":
             a = a.astype(np.int64)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        # a copy, 0-d arrays kept 0-d (``ascontiguousarray`` makes them
+        # (1,)); the step writes the frame ring in place
+        return torch.from_numpy(np.array(a, order="C")).to(device)
 
     def ref(prefix: str) -> RegistrationRef:
         return RegistrationRef(**{f.name: take(f"{prefix}.{f.name}")

@@ -49,10 +49,12 @@ class LockResult:
 def _registration_lock(feats_points, feats_desc, feats_mask, proc_gray,
                        ref: RegistrationRef, prev_h: torch.Tensor, key: torch.Tensor,
                        config: StabilizerConfig, center: torch.Tensor,
-                       use_hamming: bool) -> LockResult:
+                       use_hamming: bool, ecc_warp_fallback: bool = True) -> LockResult:
     """Register the frame's features against ``ref`` (Hamming matching for
     ORB, L2 for SIFT), or capture them as the reference when ``ref`` is
-    unset (then the lock and the fallback reset to the identity)."""
+    unset (then the lock and the fallback reset to the identity).
+    ``ecc_warp_fallback`` is ECC's ``warp_fallback``: the streaming step
+    keeps it, the offline chunk turns it off as the JAX package does."""
     with stage("match"):
         if use_hamming:
             m = match_hamming_knn(ref.desc, ref.mask, feats_desc, feats_mask,
@@ -72,7 +74,8 @@ def _registration_lock(feats_points, feats_desc, feats_mask, proc_gray,
         with stage("ecc"):
             ecc = ecc_refine_euclidean(ref.gray, proc_gray, h_rigid,
                                        max_iters=config.ecc.max_iters,
-                                       eps=config.ecc.epsilon)
+                                       eps=config.ecc.epsilon,
+                                       warp_fallback=ecc_warp_fallback)
         h_rigid = torch.where(ecc.valid, ecc.h, h_rigid)
     n_good = m.valid.to(torch.int32).sum()
     enough = ((feats_mask.to(torch.int32).sum() >= config.ransac.min_points)
@@ -109,16 +112,27 @@ def _preprocessed(pres_frame: torch.Tensor, config: StabilizerConfig):
     return proc, center
 
 
+def detect_features(pres_frame: torch.Tensor, config: StabilizerConfig, use_orb: bool):
+    """(features, proc, center) of the (Hf, Wf, C) presentation frame:
+    :func:`_preprocessed`, then ORB (with the relative-size filter) or SIFT."""
+    proc, center = _preprocessed(pres_frame, config)
+    if use_orb:
+        with stage("orb_detect"):
+            feats = orb_detect_and_compute(proc, config.orb)
+    else:
+        with stage("sift_detect"):
+            feats = sift_detect_and_compute(proc, config.sift)
+    return feats, proc, center
+
+
 def orb_lock(pres_frame: torch.Tensor, ref: RegistrationRef, prev_h: torch.Tensor,
              key: torch.Tensor, config: StabilizerConfig) -> LockResult:
     """ORB registration lock of the (Hf, Wf, C) float presentation frame:
     preprocessing, ORB with the relative-size filter, then
     :func:`_registration_lock` with Hamming matching."""
-    proc, center = _preprocessed(pres_frame, config)
-    with stage("orb_detect"):
-        feats = orb_detect_and_compute(proc, config.orb)
-    return _registration_lock(feats.points, feats.desc, feats.mask, proc, ref, prev_h,
-                              key, config, center, use_hamming=True)
+    feats, proc, center = detect_features(pres_frame, config, True)
+    return _registration_lock(feats.points, feats.desc, feats.mask, proc, ref, prev_h, key,
+                              config, center, use_hamming=True)
 
 
 def sift_lock(pres_frame: torch.Tensor, ref: RegistrationRef, prev_h: torch.Tensor,
@@ -126,8 +140,6 @@ def sift_lock(pres_frame: torch.Tensor, ref: RegistrationRef, prev_h: torch.Tens
     """SIFT registration lock of the (Hf, Wf, C) float presentation frame:
     preprocessing, SIFT with the relative-size filter, then
     :func:`_registration_lock` with L2 matching."""
-    proc, center = _preprocessed(pres_frame, config)
-    with stage("sift_detect"):
-        feats = sift_detect_and_compute(proc, config.sift)
-    return _registration_lock(feats.points, feats.desc, feats.mask, proc, ref, prev_h,
-                              key, config, center, use_hamming=False)
+    feats, proc, center = detect_features(pres_frame, config, False)
+    return _registration_lock(feats.points, feats.desc, feats.mask, proc, ref, prev_h, key,
+                              config, center, use_hamming=False)

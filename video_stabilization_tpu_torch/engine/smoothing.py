@@ -20,15 +20,16 @@ from video_stabilization_tpu_torch.ops.warp import _inv3x3
 
 
 def _prefix_products(a: torch.Tensor, left: bool) -> torch.Tensor:
-    """Inclusive prefix products of (n, 3, 3): out_j = A_j ··· A_0 (left)
-    or A_0 ··· A_j (right), by Hillis-Steele doubling."""
+    """Inclusive prefix products along the third-last axis of (..., n, 3, 3):
+    out_j = A_j ··· A_0 (left) or A_0 ··· A_j (right), by Hillis-Steele
+    doubling."""
     out = a
     shift = 1
-    n = a.shape[0]
+    n = a.shape[-3]
     while shift < n:
-        earlier, later = out[:-shift], out[shift:]
+        earlier, later = out[..., :-shift, :, :], out[..., shift:, :, :]
         prod = torch.matmul(later, earlier) if left else torch.matmul(earlier, later)
-        out = torch.cat([out[:shift], prod], 0)
+        out = torch.cat([out[..., :shift, :, :], prod], -3)
         shift *= 2
     return out
 
@@ -40,41 +41,44 @@ def smoothing_homography(
     num_transforms: torch.Tensor,
     reference_compat: bool = False,
 ) -> torch.Tensor:
-    """Smoothing homography Q (3, 3) of the presentation frame.
+    """Smoothing homography Q (..., 3, 3) of the presentation frame.
 
-    ``transforms`` (W-1, 3, 3) chronological, newest last, of which the last
-    ``num_transforms`` slots are real; ``presentation_idx`` is the
-    presentation frame's chronological index over that suffix."""
-    wm1 = transforms.shape[0]
+    ``transforms`` (..., W-1, 3, 3) chronological, newest last, of which the
+    last ``num_transforms`` (...) slots are real; ``presentation_idx`` (...)
+    is the presentation frame's chronological index over that suffix.  Each
+    leading index is one window."""
+    wm1 = transforms.shape[-3]
     dtype = transforms.dtype
     dev = transforms.device
-    base = wm1 - num_transforms
-    p = presentation_idx
+    base = (wm1 - num_transforms)[..., None]
+    p = presentation_idx[..., None]
+    nt = num_transforms[..., None]
     eye = torch.eye(3, dtype=dtype, device=dev)
     ar = torch.arange(wm1, device=dev)
 
     def chrono_batch(idx):
-        slot = (base + idx).clamp(0, wm1 - 1)
-        return transforms[slot], tvalid[slot] & (idx >= 0) & (idx < num_transforms)
+        slot = (base + idx).clamp(0, wm1 - 1).long()
+        t = torch.take_along_dim(transforms, slot[..., None, None], dim=-3)
+        return t, tvalid.gather(-1, slot) & (idx >= 0) & (idx < nt)
 
     t_past, v_past = chrono_batch(p - (ar + 1))
-    a_past = torch.where(v_past[:, None, None], _inv3x3(t_past), eye)
+    a_past = torch.where(v_past[..., None, None], _inv3x3(t_past), eye)
     past_terms = _prefix_products(a_past, left=True)
 
-    last_allowed = num_transforms - (2 if reference_compat else 1)
+    last_allowed = nt - (2 if reference_compat else 1)
     fidx = p + ar
     t_fut, v_fut = chrono_batch(fidx)
     v_fut = v_fut & (fidx <= last_allowed)
-    b_fut = torch.where(v_fut[:, None, None], t_fut, eye)
+    b_fut = torch.where(v_fut[..., None, None], t_fut, eye)
     future_terms = _prefix_products(b_fut, left=not reference_compat)
 
     zero = torch.zeros((), dtype=dtype, device=dev)
-    h_sum = (torch.where(v_past[:, None, None], past_terms, zero).sum(0)
-             + torch.where(v_fut[:, None, None], future_terms, zero).sum(0))
-    count = v_past.sum() + v_fut.sum()
+    h_sum = (torch.where(v_past[..., None, None], past_terms, zero).sum(-3)
+             + torch.where(v_fut[..., None, None], future_terms, zero).sum(-3))
+    count = v_past.sum(-1) + v_fut.sum(-1)
     if not reference_compat:
         h_sum = h_sum + eye
         count = count + 1
-    h_avg = h_sum / count.clamp(min=1).to(dtype)
-    ok = (count > 0) & torch.isfinite(h_avg).all()
-    return torch.where(ok, h_avg, eye)
+    h_avg = h_sum / count.clamp(min=1).to(dtype)[..., None, None]
+    ok = (count > 0) & torch.isfinite(h_avg).flatten(-2).all(-1)
+    return torch.where(ok[..., None, None], h_avg, eye)

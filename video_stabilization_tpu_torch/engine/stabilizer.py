@@ -102,6 +102,46 @@ def frame_keys(base_key: torch.Tensor, n: torch.Tensor) -> Tuple[torch.Tensor, t
     return prng.fold_in(base_key, n * 2), prng.fold_in(base_key, n * 2 + 1)
 
 
+def stabilized_outputs(mode: int, h_smooth, h_lock, pres_frames, frames, is_first, center,
+                       scale_factor, projective_fallback: bool):
+    """The step's tail over any leading dims (none for the streaming step,
+    K for an offline chunk): rotation split of ``h_lock``, the mode's
+    stabilizing homography, its rescale to full resolution, and one warp of
+    each (..., Hf, Wf, C) presentation frame; where ``is_first``, the new
+    frame in ``frames`` passes through unwarped.  Returns (h_stab
+    (..., 3, 3), outputs (..., Hf, Wf, C) u8, the number of ``h_stab``
+    outside the warp's envelope as an int32 tensor)."""
+    eye = torch.eye(3, dtype=torch.float32, device=h_lock.device)
+    with stage("rotation_split"):
+        lock_params, lock_ok = decompose_homography(h_lock, center)
+    h_lock = torch.where(lock_ok[..., None, None], h_lock, eye)
+    mode = StabilizationMode(int(mode))
+    if mode == StabilizationMode.GLOBAL_SMOOTHING:
+        h_stab = h_smooth
+    elif mode == StabilizationMode.TRANSLATION_LOCK:
+        h_stab = torch.matmul(_rotation_about(lock_params.theta, center), h_lock)
+    elif mode == StabilizationMode.ROTATION_LOCK:
+        h_stab = _rotation_about(-lock_params.theta, center)
+    else:
+        h_stab = h_lock
+
+    # the affine block is scale-invariant: only the translation rescales
+    h_scaled = h_stab.clone()
+    h_scaled[..., 0:2, 2] = h_stab[..., 0:2, 2] / scale_factor
+    n_viol = (~affine_envelope_ok(h_scaled)).sum().to(torch.int32)
+    with stage("warp"):
+        warped = []
+        for h, pres in zip(h_scaled.reshape(-1, 3, 3),
+                           pres_frames.reshape((-1,) + pres_frames.shape[-3:])):
+            pres = pres.float()
+            out = warp_affine(pres, h, border_value=0.5 * pres.mean(dim=(0, 1)),
+                              projective_fallback=projective_fallback)
+            warped.append(torch.clamp(torch.round(out), 0, 255).to(torch.uint8))
+        warped_u8 = torch.stack(warped).reshape(pres_frames.shape)
+    outputs = torch.where(is_first[..., None, None, None], frames.to(torch.uint8), warped_u8)
+    return h_stab, outputs, n_viol
+
+
 def stabilize_step(
     carry: EngineCarry,
     frame: torch.Tensor,
@@ -202,35 +242,11 @@ def stabilize_step(
             accum_active = torch.ones((), dtype=torch.bool, device=dev)
         h_lock = _inv3x3(accum_h)
 
-    # 7. rotation split
-    with stage("rotation_split"):
-        lock_params, lock_ok = decompose_homography(h_lock, center)
-    h_lock = torch.where(lock_ok, h_lock, eye)
-    h_translation_lock = torch.matmul(_rotation_about(lock_params.theta, center), h_lock)
-    h_rotation_lock = _rotation_about(-lock_params.theta, center)
-
-    # 8. mode switch (host int)
-    h_stabilize = {
-        StabilizationMode.GLOBAL_SMOOTHING: h_smooth,
-        StabilizationMode.ACCUMULATED_FULL_LOCK: h_lock,
-        StabilizationMode.ORB_FULL_LOCK: h_lock,
-        StabilizationMode.SIFT_FULL_LOCK: h_lock,
-        StabilizationMode.TRANSLATION_LOCK: h_translation_lock,
-        StabilizationMode.ROTATION_LOCK: h_rotation_lock,
-    }[StabilizationMode(mode)]
-
-    # 9. rescale to full resolution (affine block is scale-invariant) + warp
-    h_scaled = h_stabilize.clone()
-    h_scaled[0:2, 2] = h_stabilize[0:2, 2] / scale_factor
-    avg_color = 0.5 * pres_frame.mean(dim=(0, 1))
-    with stage("warp"):
-        warped = warp_affine(pres_frame, h_scaled, border_value=avg_color,
-                             projective_fallback=config.warp_projective_fallback)
-    env_viol = carry.envelope_violations + (~affine_envelope_ok(h_scaled)).to(torch.int32)
-    warped_u8 = torch.clamp(torch.round(warped), 0, 255).to(torch.uint8)
-
-    # the first frame is returned unstabilized
-    output = torch.where(is_first, frame.to(torch.uint8), warped_u8)
+    # 7-9. rotation split, mode switch, rescale and warp
+    h_stabilize, output, n_viol = stabilized_outputs(
+        mode, h_smooth, h_lock, pres_frame, frame, is_first, center, scale_factor,
+        config.warp_projective_fallback)
+    env_viol = carry.envelope_violations + n_viol
     out_valid = torch.ones((), dtype=torch.bool, device=dev)
 
     # 10. features for the next frame

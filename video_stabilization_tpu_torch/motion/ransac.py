@@ -25,10 +25,18 @@ from video_stabilization_tpu_torch.utils import prng
 
 @dataclass
 class RansacResult:
-    h: torch.Tensor            # (3, 3) similarity (last row 0, 0, 1)
-    valid: torch.Tensor        # () bool — False => h is identity
-    inliers: torch.Tensor      # (N,) bool
-    num_inliers: torch.Tensor  # () int32
+    h: torch.Tensor            # (..., 3, 3) similarity (last row 0, 0, 1)
+    valid: torch.Tensor        # (...) bool — False => h is identity
+    inliers: torch.Tensor      # (..., N) bool
+    num_inliers: torch.Tensor  # (...) int32
+
+
+def _take_pairs(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx, :]`` per batch entry: (..., N, D) by (..., H, 2) indices
+    -> (..., H, 2, D)."""
+    flat = idx.flatten(-2)
+    out = torch.gather(x, -2, flat[..., None].expand(flat.shape + x.shape[-1:]))
+    return out.unflatten(-2, idx.shape[-2:])
 
 
 def estimate_similarity_ransac(
@@ -39,48 +47,53 @@ def estimate_similarity_ransac(
     config: RansacConfig = RansacConfig(),
     inlier_threshold: float | None = None,
 ) -> RansacResult:
-    """Robust similarity fit of masked (N, 2) correspondences ``src -> dst``
-    with hypotheses drawn from the (2,) threefry ``key``."""
+    """Robust similarity fit of masked (..., N, 2) correspondences ``src ->
+    dst`` with hypotheses drawn from the (..., 2) threefry ``key``: each
+    leading index is one independent problem with its own key, and gives
+    what a call on that slice alone gives."""
     dtype = src.dtype
     thresh = inlier_threshold if inlier_threshold is not None else config.inlier_threshold
     thresh2 = thresh * thresh
     maskf = mask.to(dtype)
-    num_valid = mask.to(torch.int64).sum()
+    num_valid = mask.to(torch.int64).sum(-1)
     enough = num_valid >= config.min_points
 
     # valid lanes first (stable), then two distinct slots modulo num_valid
-    order = torch.argsort((~mask).to(torch.int32), stable=True)
-    bits = prng.bits(key, config.num_hypotheses)
-    nv = num_valid.clamp(min=2)
+    order = torch.argsort((~mask).to(torch.int32), dim=-1, stable=True)
+    bits = prng.bits(key, config.num_hypotheses)                # (..., H)
+    nv = num_valid.clamp(min=2)[..., None]
     j1 = (bits & 0xFFFF) % nv
     j2 = (j1 + 1 + (bits >> 16) % (nv - 1)) % nv
-    idx = order[torch.stack([j1, j2], 1)]                       # (H, 2)
+    pairs = torch.stack([j1, j2], -1)                           # (..., H, 2)
+    idx = torch.gather(order, -1, pairs.flatten(-2)).unflatten(-1, pairs.shape[-2:])
 
-    h_hyp, hyp_valid = similarity_from_2pt(src[idx], dst[idx])  # (H, 3, 3), (H,)
+    h_hyp, hyp_valid = similarity_from_2pt(_take_pairs(src, idx),
+                                           _take_pairs(dst, idx))  # (..., H, 3, 3)
 
-    proj = transform_points(h_hyp, src[None])                   # (H, N, 2)
-    resid2 = ((proj - dst[None]) ** 2).sum(-1)
-    inlier = (resid2 < thresh2) & mask[None]
+    proj = transform_points(h_hyp, src[..., None, :, :])        # (..., H, N, 2)
+    resid2 = ((proj - dst[..., None, :, :]) ** 2).sum(-1)
+    inlier = (resid2 < thresh2) & mask[..., None, :]
     counts = inlier.to(torch.int64).sum(-1)
     counts = torch.where(hyp_valid, counts, torch.full_like(counts, -1))
-    # first maximum; index_select keeps the pick on the device (indexing
-    # with a 0-d tensor would read it on the host)
-    best = torch.argmax(counts).view(1)
-    best_count = counts.index_select(0, best)[0]
-    h_cur, inl = h_hyp.index_select(0, best)[0], inlier.index_select(0, best)[0]
+    # first maximum; gathering keeps the pick on the device (indexing with a
+    # 0-d tensor would read it on the host)
+    best = torch.argmax(counts, -1, keepdim=True)               # (..., 1)
+    best_count = counts.gather(-1, best)[..., 0]
+    h_cur = torch.take_along_dim(h_hyp, best[..., None, None], dim=-3)[..., 0, :, :]
+    inl = torch.take_along_dim(inlier, best[..., None], dim=-2)[..., 0, :]
     for _ in range(config.refine_iters):
         h_new, fit_valid = fit_similarity_masked(src, dst, inl.to(dtype) * maskf)
-        h_cur = torch.where(fit_valid, h_new, h_cur)
+        h_cur = torch.where(fit_valid[..., None, None], h_new, h_cur)
         r2 = ((transform_points(h_cur, src) - dst) ** 2).sum(-1)
         inl = (r2 < thresh2) & mask
 
-    final_count = inl.to(torch.int32).sum()
+    final_count = inl.to(torch.int32).sum(-1)
     ok = enough & (best_count >= config.min_points) & (final_count >= 3)
-    ok = ok & torch.isfinite(h_cur).all()
+    ok = ok & torch.isfinite(h_cur).flatten(-2).all(-1)
     eye = identity_homography((), dtype, src.device)
     return RansacResult(
-        h=torch.where(ok, h_cur, eye),
+        h=torch.where(ok[..., None, None], h_cur, eye),
         valid=ok,
-        inliers=inl & ok,
+        inliers=inl & ok[..., None],
         num_inliers=torch.where(ok, final_count, torch.zeros_like(final_count)),
     )

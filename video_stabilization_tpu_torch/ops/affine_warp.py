@@ -120,13 +120,14 @@ def resample_plain(x: torch.Tensor, abg: torch.Tensor, n_out: int, axis: int,
 
 
 def _pass_params(hinv: torch.Tensor):
-    """(pass V (alpha, beta, gamma), pass H (A, B, tx)) from the inverse map,
-    with ``a_safe`` clamped as in the JAX package."""
-    a, b, tx = hinv[0, 0], hinv[0, 1], hinv[0, 2]
-    cc, d, ty = hinv[1, 0], hinv[1, 1], hinv[1, 2]
+    """(pass V (alpha, beta, gamma), pass H (A, B, tx)), each (..., 3), from
+    the (..., 3, 3) inverse map, with ``a_safe`` clamped as in the JAX
+    package."""
+    a, b, tx = hinv[..., 0, 0], hinv[..., 0, 1], hinv[..., 0, 2]
+    cc, d, ty = hinv[..., 1, 0], hinv[..., 1, 1], hinv[..., 1, 2]
     a_safe = torch.where(a.abs() > 1e-3, a, torch.full_like(a, 1e-3))
-    p_v = torch.stack([d - cc * b / a_safe, cc / a_safe, ty - cc * tx / a_safe])
-    p_h = torch.stack([a, b, tx])
+    p_v = torch.stack([d - cc * b / a_safe, cc / a_safe, ty - cc * tx / a_safe], -1)
+    p_h = torch.stack([a, b, tx], -1)
     return p_v, p_h
 
 
@@ -136,12 +137,13 @@ def _span_ok(alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
 
 def _envelope_ok_inv(hinv: torch.Tensor) -> torch.Tensor:
     p_v, p_h = _pass_params(hinv)
-    return (_span_ok(p_v[0], p_v[1]) & _span_ok(p_h[0], p_h[1])
-            & (hinv[0, 0].abs() > 1e-3))
+    return (_span_ok(p_v[..., 0], p_v[..., 1]) & _span_ok(p_h[..., 0], p_h[..., 1])
+            & (hinv[..., 0, 0].abs() > 1e-3))
 
 
 def affine_envelope_ok(h: torch.Tensor) -> torch.Tensor:
-    """() bool tensor: ``h`` lies inside the JAX package's Pallas envelope."""
+    """(...) bool tensor: each (..., 3, 3) ``h`` lies inside the JAX
+    package's Pallas envelope."""
     return _envelope_ok_inv(_inv3x3(h.float()))
 
 

@@ -20,9 +20,9 @@ from video_stabilization_tpu_torch.ops.gradients import box_sum, sobel_xy
 
 @dataclass
 class Corners:
-    points: torch.Tensor    # (max_corners, 2) f32 (x, y)
-    response: torch.Tensor  # (max_corners,) f32
-    mask: torch.Tensor      # (max_corners,) bool
+    points: torch.Tensor    # (..., max_corners, 2) f32 (x, y)
+    response: torch.Tensor  # (..., max_corners) f32
+    mask: torch.Tensor      # (..., max_corners) bool
 
 
 def min_eig_response(img: torch.Tensor, block_size: int = 3) -> torch.Tensor:
@@ -38,8 +38,10 @@ def min_eig_response(img: torch.Tensor, block_size: int = 3) -> torch.Tensor:
 
 
 def _nms3(resp: torch.Tensor) -> torch.Tensor:
-    """Keep 3x3 local maxima (ties keep all); -inf outside the image."""
-    neigh = F.max_pool2d(resp[None, None], 3, stride=1, padding=1)[0, 0]
+    """Keep 3x3 local maxima of (..., H, W) (ties keep all); -inf outside
+    the image."""
+    planes = resp.reshape((-1, 1) + resp.shape[-2:])
+    neigh = F.max_pool2d(planes, 3, stride=1, padding=1).reshape(resp.shape)
     return torch.where(resp >= neigh, resp, torch.full_like(resp, -torch.inf))
 
 
@@ -52,7 +54,10 @@ def top_k_stable(x: torch.Tensor, k: int):
 
 def good_features_to_track(img: torch.Tensor, config: GFTTConfig = GFTTConfig(),
                            min_distance: float | None = None) -> Corners:
-    """Up to ``config.max_features`` corners on an (H, W) float image."""
+    """Up to ``config.max_features`` corners on each (..., H, W) float image;
+    every field gains the image's leading dims, and each image gives what a
+    call on it alone gives (the quality threshold and the top-k are per
+    image)."""
     if config.selection != "cell":
         raise NotImplementedError(
             f"gftt.selection={config.selection!r} is not ported yet "
@@ -63,32 +68,33 @@ def good_features_to_track(img: torch.Tensor, config: GFTTConfig = GFTTConfig(),
     cell = max(int(min_distance), 1)
 
     resp = min_eig_response(img, config.block_size)
-    thresh = config.quality_level * resp.max()
+    thresh = config.quality_level * resp.amax((-2, -1), keepdim=True)
     resp = torch.where(resp >= thresh, resp, torch.full_like(resp, -torch.inf))
     resp = _nms3(resp)
 
     gh, gw = -(-h // cell), -(-w // cell)
     rp = F.pad(resp, (0, gw * cell - w, 0, gh * cell - h), value=-torch.inf)
-    cells = rp.reshape(gh, cell, gw, cell).permute(0, 2, 1, 3).reshape(gh, gw, cell * cell)
+    cells = (rp.unflatten(-1, (gw, cell)).unflatten(-3, (gh, cell))
+             .transpose(-3, -2).flatten(-2))                     # (..., gh, gw, cell²)
     best_in_cell = torch.argmax(cells, -1)                       # first maximum
     best_resp = torch.gather(cells, -1, best_in_cell[..., None])[..., 0]
 
     dev = img.device
     cy = torch.arange(gh, device=dev)[:, None] * cell + best_in_cell // cell
     cx = torch.arange(gw, device=dev)[None, :] * cell + best_in_cell % cell
-    flat_resp = best_resp.reshape(-1)
-    flat_x = cx.reshape(-1).float()
-    flat_y = cy.reshape(-1).float()
+    flat_resp = best_resp.flatten(-2)
+    flat_x = cx.flatten(-2).float()
+    flat_y = cy.flatten(-2).float()
 
     k = config.max_features
-    n_cells = flat_resp.shape[0]
+    n_cells = flat_resp.shape[-1]
     if n_cells < k:
         flat_resp = F.pad(flat_resp, (0, k - n_cells), value=-torch.inf)
         flat_x = F.pad(flat_x, (0, k - n_cells))
         flat_y = F.pad(flat_y, (0, k - n_cells))
 
     top_resp, top_idx = top_k_stable(flat_resp, k)
-    points = torch.stack([flat_x[top_idx], flat_y[top_idx]], -1)
+    points = torch.stack([flat_x.gather(-1, top_idx), flat_y.gather(-1, top_idx)], -1)
     mask = torch.isfinite(top_resp)
-    points = torch.where(mask[:, None], points, 0.0)
+    points = torch.where(mask[..., None], points, 0.0)
     return Corners(points=points, response=torch.where(mask, top_resp, 0.0), mask=mask)

@@ -29,9 +29,10 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
 
 def threefry2x32(key: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor):
     """The Threefry-2x32 block (20 rounds) of counters (x0, x1) under the
-    two-word ``key``; all int64 tensors of 32-bit values."""
-    k0 = key[0] & _MASK
-    k1 = key[1] & _MASK
+    two-word ``key`` (..., 2); all int64 tensors of 32-bit values, broadcast
+    against each other."""
+    k0 = key[..., 0] & _MASK
+    k1 = key[..., 1] & _MASK
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
@@ -50,15 +51,16 @@ def key(seed: int, device=None) -> torch.Tensor:
 
 
 def fold_in(key_words: torch.Tensor, data) -> torch.Tensor:
-    """``jax.random.fold_in``: a new (2,) key from a key and a 32-bit value
-    (a Python int or a 0-d integer tensor)."""
+    """``jax.random.fold_in``: a new (..., 2) key from a (2,) key and 32-bit
+    values (a Python int or an integer tensor of any shape)."""
     d = torch.as_tensor(data, device=key_words.device).to(torch.int64) & _MASK
     y0, y1 = threefry2x32(key_words, torch.zeros_like(d), d)
-    return torch.stack([y0, y1])
+    return torch.stack([y0, y1], -1)
 
 
 def bits(key_words: torch.Tensor, n: int) -> torch.Tensor:
-    """``jax.random.bits(key, (n,), uint32)`` as an (n,) int64 tensor."""
+    """``jax.random.bits(key, (n,), uint32)`` of each (..., 2) key, as an
+    (..., n) int64 tensor."""
     ctr = torch.arange(n, dtype=torch.int64, device=key_words.device)
-    b1, b2 = threefry2x32(key_words, torch.zeros_like(ctr), ctr)
+    b1, b2 = threefry2x32(key_words[..., None, :], torch.zeros_like(ctr), ctr)
     return b1 ^ b2

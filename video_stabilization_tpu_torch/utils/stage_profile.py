@@ -1,7 +1,7 @@
 """Per-stage host time and device time of the port's per-frame step.
 
     python -m video_stabilization_tpu_torch.utils.stage_profile [--config {1,3,4}]
-        [--frames N] [--warm N] [--seed N]
+        [--frames N] [--warm N] [--seed N] [--chunk K [--turns R]]
 
 Counterpart of the JAX package's ``utils/stage_profile.py`` for one CUDA
 card.  Config 1 is 1080x1920 frames in GLOBAL_SMOOTHING, config 3 is
@@ -16,7 +16,14 @@ simulator footage rendered on the card it runs
 ``--frames`` more under ``torch.profiler`` and prints per frame: the
 unprofiled ms, the device-busy ms (kernel time) and idle share, the kernel
 count, the host ms, device events and device ms of each stage, and the
-device time of the heaviest kernels and of the hand-written ones.  It needs a CUDA card.
+device time of the heaviest kernels and of the hand-written ones.  With
+``--chunk K`` it drives the offline chunk step (``engine/offline.py``) in
+K-frame chunks instead, ``--warm`` and ``--frames`` rounded up to whole
+chunks; its stages are those of the chunk.  With ``--turns R`` as well it
+profiles nothing: it times the two forms in turns, R times, each turn from
+fresh carries over the same frames (the offline form chunk by chunk, the
+streaming step over the same ``--frames`` after the same ``--warm``).  It
+needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -60,6 +67,12 @@ def _stage_device_events(prof) -> dict:
     return counts
 
 
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+
+
 def footage(cfg, n_frames: int, seed: int, dev) -> torch.Tensor:
     """(T, H, W, 3) uint8 shaky simulator frames rendered on ``dev``."""
     from video_stabilization_tpu_torch.sim import (
@@ -74,16 +87,68 @@ def footage(cfg, n_frames: int, seed: int, dev) -> torch.Tensor:
                         for i in range(n_frames)])
 
 
+def feeder(cfg, mode, seed: int, chunk: int, dev):
+    """A function that feeds a (T, H, W, 3) run of frames to one stream: the
+    streaming step frame by frame, or with ``chunk`` the offline step in
+    ``chunk``-frame calls."""
+    import dataclasses
+
+    from video_stabilization_tpu_torch.engine import Stabilizer, init_carry, make_offline_fn
+    from video_stabilization_tpu_torch.utils import prng
+
+    if not chunk:
+        stab = Stabilizer(cfg, mode, seed=seed, device=dev)
+        return lambda frames: [stab.stabilize_frame(f) for f in frames]
+    cfg = dataclasses.replace(cfg, static_mode=int(mode))
+    step = make_offline_fn(cfg)
+    state = {"carry": init_carry(cfg, int(mode), prng.key(seed), dev)}
+
+    def feed(frames):
+        for i in range(0, len(frames), chunk):
+            state["carry"], _ = step(state["carry"], frames[i:i + chunk])
+    return feed
+
+
+def time_in_turns(cfg, mode, frames, seed: int, chunk: int, warm: int, turns: int,
+                  dev) -> None:
+    """Print, for each of ``turns`` turns, the offline step's ms/frame per
+    chunk after the ``warm`` frames and the streaming step's ms/frame over
+    the same frames (CUDA events; fresh carries each turn)."""
+    def timed(feed, part) -> float:
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        ev0.record()
+        feed(part)
+        ev1.record()
+        torch.cuda.synchronize()
+        return ev0.elapsed_time(ev1) / len(part)
+
+    for turn in range(turns):
+        feed = feeder(cfg, mode, seed, chunk, dev)
+        feed(frames[:warm])
+        per_chunk = [timed(feed, frames[i:i + chunk]) for i in range(warm, len(frames), chunk)]
+        stream = feeder(cfg, mode, seed, 0, dev)
+        stream(frames[:warm])
+        ms_stream = timed(stream, frames[warm:])
+        print(f"turn {turn}: offline {sum(per_chunk) / len(per_chunk):.3f} ms/frame (per chunk "
+              f"of {chunk}: {', '.join(f'{t:.3f}' for t in per_chunk)}); streaming "
+              f"{ms_stream:.3f} ms/frame; frames {warm}..{len(frames) - 1} after {warm} of "
+              "warm-up", flush=True)
+
+
 def main() -> int:
     from video_stabilization_tpu_torch.config import (
         ECCConfig, StabilizationMode, StabilizerConfig)
-    from video_stabilization_tpu_torch.engine import Stabilizer
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", type=int, choices=(1, 3, 4), default=3)
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--warm", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--chunk", type=int, default=0,
+                    help="offline chunks of K frames (default 0: the streaming step)")
+    ap.add_argument("--turns", type=int, default=0,
+                    help="with --chunk: time offline and streaming in R turns, no profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("stage_profile: needs a CUDA card", file=sys.stderr)
@@ -96,17 +161,23 @@ def main() -> int:
                            past_frames=30, future_frames=15,
                            ecc=ECCConfig(enabled=args.config == 4, max_iters=30))
     dev = torch.device("cuda", 0)
-    n = args.frames
-    frames = footage(cfg, args.warm + 2 * n, args.seed, dev)
-    stab = Stabilizer(cfg, mode, seed=args.seed, device=dev)
-    for f in frames[:args.warm]:
-        stab.stabilize_frame(f)
+    whole = max(args.chunk, 1)
+    n = -(-args.frames // whole) * whole
+    warm = -(-args.warm // whole) * whole
+    if args.turns and args.chunk:
+        print(f"config {args.config} ({size[0]}x{size[1]}, {mode.name}); {card_line()}",
+              flush=True)
+        time_in_turns(cfg, mode, footage(cfg, warm + n, args.seed, dev), args.seed,
+                      args.chunk, warm, args.turns, dev)
+        return 0
+    frames = footage(cfg, warm + 2 * n, args.seed, dev)
+    feed = feeder(cfg, mode, args.seed, args.chunk, dev)
+    feed(frames[:warm])
 
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     ev0.record()
-    for f in frames[args.warm:args.warm + n]:
-        stab.stabilize_frame(f)
+    feed(frames[warm:warm + n])
     ev1.record()
     torch.cuda.synchronize()
     wall = ev0.elapsed_time(ev1) / n
@@ -119,16 +190,13 @@ def main() -> int:
     try:
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            for f in frames[args.warm + n:]:
-                stab.stabilize_frame(f)
+            feed(frames[warm + n:])
             torch.cuda.synchronize()
             wall_prof = 1e3 * (time.perf_counter() - t0) / n
     finally:
         stage_profile.enabled = False
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          timeout=60).stdout.strip()
+    card = card_line()
     # device-side events (kernels, copies, fills) only: a CPU op's device
     # time is that of the kernels it launched, counted here already, and
     # the stage ranges also show on the device timeline as annotations
@@ -137,7 +205,9 @@ def main() -> int:
                and not e.key.startswith("stage:")]
     busy = sum(_device_us(e) for e in kernels) / 1e3 / n
     count = sum(e.count for e in kernels)
-    print(f"config {args.config} ({size[0]}x{size[1]}, {mode.name}), {n} frames; {card}")
+    form = f"offline chunks of {args.chunk}" if args.chunk else "streaming"
+    print(f"config {args.config} ({size[0]}x{size[1]}, {mode.name}), {form}, {n} frames; "
+          f"{card}")
     print(f"wall {wall:.3f} ms/frame (CUDA events, unprofiled), {wall_prof:.3f} under "
           f"the profiler; device busy {busy:.3f} ms/frame, idle share "
           f"{1 - busy / wall:.3f} of the unprofiled wall; {count / n:.0f} device "
@@ -147,7 +217,7 @@ def main() -> int:
     launched = _stage_device_events(prof)
     for e in sorted(stages, key=lambda e: e.cpu_time_total, reverse=True):
         print(f"  host {e.key[6:]}: {e.cpu_time_total / 1e3 / n:.3f} ms/frame "
-              f"({e.count / n:.0f} calls/frame); its device events "
+              f"({e.count / n:.3g} calls/frame); its device events "
               f"{launched.get(e.key, 0) / n:.0f}/frame, {e.device_time_total / 1e3 / n:.4f} "
               "ms/frame")
     for e in sorted(kernels, key=_device_us, reverse=True)[:12]:
