@@ -14,8 +14,13 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    kernel on the ten ORB level shapes of a 360x640 working image at once
    (random integer images and the real level images of one rendered
    720x1280 frame), against their plain PyTorch versions on the card
-   (exact), with median CUDA-event times; ``grid_sample`` at 3x1080x1920
-   as a yardstick for a one-pass warp of the same bytes;
+   (exact), with median CUDA-event times; the warp kernel's batches at
+   every batched path's shapes (16 items for an offline chunk of configs 1,
+   3 and 4, 8 and 64 for config 5's batched step and chunk; mixed inside
+   and outside the envelope, per-item borders), exact, with their device
+   times;
+   ``grid_sample`` at 3x1080x1920 as a yardstick for a one-pass warp of the
+   same bytes;
 4. the config-1 slice: bench config 1 (1080x1920 frames, working height
    360, window 30 + 1 + 15) through ``Stabilizer.stabilize_frame`` on footage
    rendered on the card by the port's simulator; GLOBAL_SMOOTHING, then
@@ -42,7 +47,19 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    and SIFT slices (config 4: its first 32 frames, a depth cut); launches
    per chunk, host syncs of the warm-up chunk, outputs against the streaming
    slice's frame by frame, the slice's quality bounds, ms/frame and device
-   events per frame beside the streaming step's.
+   events per frame beside the streaming step's;
+9. the config-5 slice: bench config 5 (8 streams of 1080x1920 frames, one
+   trajectory seed each, working height 360, window 30 + 1 + 15, 24
+   frames) in TRANSLATION_LOCK and in GLOBAL_SMOOTHING through the batched
+   step (``parallel.make_batched_step_fn``) and the stream-batched offline
+   chunk (``engine.make_offline_batched_fn``, chunks of 8): warp launches
+   per step and per chunk, host syncs of an untimed warm-up step and chunk,
+   the device's count of warps outside the envelope, each stream's outputs
+   against its own single-stream run frame by frame (and stream 0 alone, a
+   batch of one, bit for bit), where a batch of the streams rounds
+   differently from one stream on the card, ms per batched frame
+   and frames/s, device events per batched frame beside 8 x the
+   single-stream step's, and peak device memory.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -113,6 +130,25 @@ SIFT_OFFLINE_FRAMES = 32  # config-4 offline frames: a depth cut from 64 (smoke 
 OFFLINE_DIFFER = 0.02    # per frame, share of pixels where offline != streaming
 OFFLINE_OFF_BY_MORE = 0.001  # per frame, share off by more than one level
 STREAM_PROFILED = 4      # streaming frames profiled for device events per frame
+# warp launches of one offline chunk or batched step, whatever its size:
+# LK's four warps and the output warp, each over the whole batch; ECC's
+# warps stay per frame
+BATCHED_LAUNCHES = 5
+N_STREAMS = 8            # bench config 5 (bench.py CONFIGS[5])
+STREAM_FRAMES = 24       # its max_frames
+STREAM_CHUNK = 8         # bench.py's offline chunk for several streams
+# the batched warps of each batched path: (items per launch, frames per
+# launch, launches per shape); config 5's batched step serves one frame of
+# each of the 8 streams, its offline chunk 8 frames of each.  At config 4
+# the 32 ECC warps per frame stay single launches.
+BATCHED_PATHS = {
+    "offline_config1": (OFFLINE_CHUNK, OFFLINE_CHUNK, WARPS_PER_FRAME["config1"]),
+    "offline_config3": (OFFLINE_CHUNK, OFFLINE_CHUNK, WARPS_PER_FRAME["config3"]),
+    "offline_config4": (OFFLINE_CHUNK, OFFLINE_CHUNK, WARPS_PER_FRAME["config1"]),
+    "config5": (N_STREAMS, 1, WARPS_PER_FRAME["config1"]),
+    "offline_config5": (N_STREAMS * STREAM_CHUNK, STREAM_CHUNK, WARPS_PER_FRAME["config1"]),
+}
+ECC_WARPS = {(1, 360, 640): ECC_ITERS + 2}   # per frame at config 4, single launches
 
 
 def rigid(theta_deg: float, tx: float = 0.0, ty: float = 0.0) -> np.ndarray:
@@ -244,11 +280,12 @@ def phase_kernel(dev, rng) -> dict:
         # (inverse map prepared outside the timed call)
         src = warp_input(shape, "hwc", rng, dev)
         h = torch.from_numpy(TRANSFORMS["rot3"]).to(dev)
-        hinv = _inv3x3(h)
+        items = src[None]
+        hinv = _inv3x3(h)[None].contiguous()
         bt = border if isinstance(border, torch.Tensor) else None
         bs = 0.0 if bt is not None else border
-        ms = time_ms(lambda: aw._launch(src, hinv, bt, bs, True))
-        dev_ms = device_ms(lambda: aw._launch(src, hinv, bt, bs, True))
+        ms = time_ms(lambda: aw._launch(items, hinv, bt, 0, bs, True))
+        dev_ms = device_ms(lambda: aw._launch(items, hinv, bt, 0, bs, True))
         call_ms = time_ms(lambda: aw.warp_affine(src, h, border))
         plain_ms = time_ms(lambda: aw.warp_affine_plain(src, h, border))
         times[shape] = (ms, plain_ms, dev_ms)
@@ -283,8 +320,97 @@ def phase_kernel(dev, rng) -> dict:
               f"{out[name]['device_ms']:.4f} ms device, plain {out[name]['plain_ms']:.4f} "
               f"ms, bound {out[name]['bound_ms']:.5f} ms ({out[name]['bound_by']}, "
               f"{px} px)", flush=True)
+    out["times"] = times
     return out
 
+
+def mixed_transforms(b: int, rng, inside_only: bool = False) -> np.ndarray:
+    """(B, 3, 3) rigid transforms of the step's size (within 6 degrees and
+    4 px); unless ``inside_only``, every fourth one 12 or 20 degrees,
+    outside the envelope."""
+    hs = []
+    for i in range(b):
+        theta = rng.uniform(-6.0, 6.0)
+        if not inside_only and i % 4 == 3:
+            theta = 12.0 if i % 8 == 3 else 20.0
+        hs.append(rigid(theta, *rng.uniform(-4.0, 4.0, 2)))
+    return np.stack(hs)
+
+
+def phase_batched_kernel(dev, rng, single: dict) -> dict:
+    """The warp kernel's batches, one launch each, at every batched path's
+    shapes (BATCHED_PATHS: 16 items for an offline chunk of configs 1, 3
+    and 4; 8 for config 5's batched step, 64 for its chunk), per-item
+    borders on the output frames, a batch that mixes items inside and
+    outside the envelope, against the plain version item by item (exact),
+    and the device's count of the items outside.  Times a batch as the main
+    path launches it (all inside) and returns, per path and per frame (for
+    config 5: per batched frame of 8 streams), the kernel / plain / device
+    ms and the bound; ``single`` holds phase 3's single-image times, for
+    config 4's ECC warps."""
+    from video_stabilization_tpu_torch.ops import affine_warp as aw
+    from video_stabilization_tpu_torch.ops.warp import _inv3x3
+
+    counter = aw.fallback_counter(dev)
+    max_err = 0.0
+    times = {}
+    batches = sorted({(b,) + shape for b, _, warps in BATCHED_PATHS.values() for shape in warps})
+    for b, c, h, w in batches:
+        src = torch.from_numpy(rng.uniform(0, 255, (b, h, w, c)).astype(np.float32)).to(dev)
+        if c == 1:
+            src = src[..., 0]
+        border = (torch.from_numpy(rng.uniform(0, 255, (b, c)).astype(np.float32)).to(dev)
+                  if c == 3 else 0.0)
+        hs = torch.from_numpy(mixed_transforms(b, rng)).to(dev)
+        outside = int((~aw.affine_envelope_ok(hs)).sum())
+        counter.zero_()
+        launches = aw.launches
+        k = aw.warp_affine(src, hs, border)
+        if aw.launches - launches != 1:
+            raise AssertionError(f"batched warp {b}x{(c, h, w)}: "
+                                 f"{aw.launches - launches} launches")
+        gathered = int(counter)
+        p = aw.warp_affine_plain(src, hs, border)
+        err = float((k - p).abs().max())
+        max_err = max(max_err, err)
+        if not err <= KERNEL_TOL or gathered != outside or outside != b // 4:
+            raise AssertionError(f"batched warp {b}x{(c, h, w)} vs plain: max abs {err}, "
+                                 f"gather count {gathered} of {outside} outside")
+        # as the main path launches it: every item inside the envelope
+        hs = torch.from_numpy(mixed_transforms(b, rng, inside_only=True)).to(dev)
+        hinv = _inv3x3(hs).contiguous()
+        bt = border if isinstance(border, torch.Tensor) else None
+        stride = c if bt is not None else 0
+
+        def launch():
+            return aw._launch(src, hinv, bt, stride, 0.0, False)
+
+        ms = time_ms(launch)
+        # a graph keeps each replayed launch's output: few for a big batch
+        dev_ms = device_ms(launch, n=40 if src.numel() < 2 ** 25 else 4)
+        plain_ms = time_ms(lambda: aw.warp_affine_plain(src, hs, border), reps=3, inner=1,
+                           warmup=1)
+        times[(b, c, h, w)] = (ms, plain_ms, dev_ms)
+        print(f"batched warp {b} x {(c, h, w)}: equal to the plain version item by item "
+              f"(max abs {err}), {gathered} of {b} items on the device's gather; kernel "
+              f"{ms:.4f} ms back to back, {dev_ms:.4f} ms device (CUDA graph), plain "
+              f"{plain_ms:.4f} ms", flush=True)
+        del src, k, p
+    out = {"max_abs_err_batched": max_err}
+    for path, (b, frames, warps) in BATCHED_PATHS.items():
+        per_frame = ECC_WARPS if path == "offline_config4" else {}
+        px = (b * sum(n * c * h * w for (c, h, w), n in warps.items()) / frames
+              + sum(n * c * h * w for (c, h, w), n in per_frame.items()))
+        out[path] = {name: (sum(n * times[(b,) + shape][i] for shape, n in warps.items()) / frames
+                            + sum(n * single[shape][i] for shape, n in per_frame.items()))
+                     for i, name in enumerate(("ms", "plain_ms", "device_ms"))}
+        out[path].update(bound_ms(8 * px, (2 * RESAMPLE_OPS + BORDER_OPS) * px))
+        unit = f"batched frame ({N_STREAMS} streams)" if path.endswith("config5") else "frame"
+        print(f"warp {path}: per {unit} {out[path]['ms']:.4f} ms back to back, "
+              f"{out[path]['device_ms']:.4f} ms device, plain {out[path]['plain_ms']:.4f} ms, "
+              f"bound {out[path]['bound_ms']:.5f} ms ({out[path]['bound_by']}, {px:.0f} px)",
+              flush=True)
+    return out
 
 def bound_ms(n_bytes: float, n_ops: float) -> dict:
     """The least time the card could take: bytes over the HBM rate or f32
@@ -775,6 +901,8 @@ def phase_offline(cfg, mode, path: str, n_frames: int, seed: int, dev, card: str
     delay = cfg.future_frames
     locked = mode in (StabilizationMode.ORB_FULL_LOCK, StabilizationMode.SIFT_FULL_LOCK)
     warp_per_frame = LAUNCHES_PER_FRAME[path]
+    # LK and the output warp once per chunk, ECC per frame
+    ecc_per_frame = warp_per_frame - BATCHED_LAUNCHES
     fast_per_frame = (FAST_LAUNCHES_PER_FRAME if mode == StabilizationMode.ORB_FULL_LOCK
                       else 0)
     cfg_off = dataclasses.replace(cfg, static_mode=int(mode))
@@ -823,10 +951,11 @@ def phase_offline(cfg, mode, path: str, n_frames: int, seed: int, dev, card: str
     if out_o.shape != (n_frames, hf, wf, 3) or out_o.dtype != torch.uint8:
         raise AssertionError(f"{tag}: bad outputs {tuple(out_o.shape)} {out_o.dtype}")
     for size, n_warp, n_fast in per_chunk:
-        if (n_warp, n_fast) != (size * warp_per_frame, size * fast_per_frame):
+        want = BATCHED_LAUNCHES + size * ecc_per_frame
+        if (n_warp, n_fast) != (want, size * fast_per_frame):
             raise AssertionError(f"{tag}: a chunk of {size} launched the warp {n_warp} and "
-                                 f"FAST {n_fast} times, not {size} x {warp_per_frame} and "
-                                 f"{size} x {fast_per_frame}")
+                                 f"FAST {n_fast} times, not {BATCHED_LAUNCHES} + {size} x "
+                                 f"{ecc_per_frame} and {size} x {fast_per_frame}")
     report_syncs(tag, syncs, "chunk (the warm-up one, untimed)")
 
     # outputs against the streaming step's, frame by frame
@@ -884,8 +1013,8 @@ def phase_offline(cfg, mode, path: str, n_frames: int, seed: int, dev, card: str
     ms_chunks = [a.elapsed_time(b) / size
                  for a, b, (size, _, _) in zip(events, events[1:], per_chunk[1:])]
     print(f"{tag}: {n_frames} {mode.name} frames {hf}x{wf} in chunks of {k}{depth_cut}; warp "
-          f"launches {warp_launches} ({warp_per_frame}/frame, {k * warp_per_frame}/chunk), "
-          f"fast launches {fast_launches} ({fast_per_frame}/frame), warps outside the "
+          f"launches {warp_launches} ({BATCHED_LAUNCHES} + {ecc_per_frame}/frame = "
+          f"{BATCHED_LAUNCHES + k * ecc_per_frame}/chunk), fast launches {fast_launches} ({fast_per_frame}/frame), warps outside the "
           f"envelope {fallbacks} (device count)", flush=True)
     print(f"{tag}: vs the streaming step's outputs: per frame at most {differ:.5f} of pixels "
           f"differ (<= {OFFLINE_DIFFER}), {off_more:.6f} by more than one level (<= "
@@ -905,6 +1034,227 @@ def phase_offline(cfg, mode, path: str, n_frames: int, seed: int, dev, card: str
     return {"launches": warp_launches, "fast_launches": fast_launches, "frames": n_frames,
             "ms_frame": ms_frame, "syncs": len(syncs), "events_per_frame": ev_offline,
             "stream_events_per_frame": ev_stream}
+
+
+def batch_rounding(cfg, frames: torch.Tensor, keys: torch.Tensor, dev) -> str:
+    """Where a batch of the streams rounds differently from each stream
+    alone (a batch of one) on the same inputs, on the first two frames of
+    every stream: dense LK's points, the RANSAC fit, and the ops inside them
+    whose summation order may follow the batch's shape: the box filter's
+    band product (cuBLAS), and the weighted similarity fit of RANSAC's
+    refinement with its sums over the points (CUDA reductions).  Returns the
+    line to print."""
+    import dataclasses
+
+    from video_stabilization_tpu_torch.engine.stabilizer import _fit_inter_frame, frame_keys
+    from video_stabilization_tpu_torch.motion.similarity import fit_similarity_masked
+    from video_stabilization_tpu_torch.ops.gftt import good_features_to_track
+    from video_stabilization_tpu_torch.ops.image import bgr_to_gray, resize_bilinear
+    from video_stabilization_tpu_torch.ops.lk import lk_track
+    from video_stabilization_tpu_torch.ops.lk_dense import _band, _bf16
+    from video_stabilization_tpu_torch.ops.pyramid import build_pyramid
+
+    s_n = frames.shape[0]
+    wh, ww = cfg.working_size
+    lk = dataclasses.replace(cfg.lk, warp_fallback=False)
+    center = torch.tensor([ww / 2.0, wh / 2.0], device=dev)
+    pyr0, pyr1 = (build_pyramid(bgr_to_gray(resize_bilinear(frames[:, t].float(), wh, ww)),
+                                lk.pyramid_levels) for t in (0, 1))
+    corners = good_features_to_track(pyr0[0], cfg.gftt)
+    k_ransac, _ = frame_keys(keys, torch.ones(s_n, dtype=torch.int32, device=dev))
+    band = _band(wh, lk.window_size, dev)
+    square = _bf16(torch.square(pyr1[0] - pyr0[0]))
+
+    def track(i):
+        return lk_track([p[i] for p in pyr0], [p[i] for p in pyr1], corners.points[i],
+                        corners.mask[i], lk)
+
+    tracked = track(slice(None))
+    weight = tracked.status.float()
+    ops = {
+        "LK points": lambda i: track(i).points,
+        "RANSAC h": lambda i: _fit_inter_frame(corners.points[i], tracked.points[i],
+                                               tracked.status[i], k_ransac[i], cfg,
+                                               center)[0].h,
+        "band product": lambda i: torch.matmul(band, square[i]),
+        "similarity fit": lambda i: fit_similarity_masked(corners.points[i], tracked.points[i],
+                                                          weight[i])[0],
+        "centroid sums": lambda i: (weight[i][..., None] * tracked.points[i]).sum(-2),
+        "weighted sums": lambda i: (weight[i] * torch.square(tracked.points[i]).sum(-1)).sum(-1),
+    }
+    parts = []
+    for name, fn in ops.items():
+        whole = fn(slice(None))
+        alone = torch.cat([fn(slice(s, s + 1)) for s in range(s_n)])
+        parts.append(f"{name} {int((whole != alone).sum())} of {whole.numel()} "
+                     f"(max abs {float((whole - alone).abs().max()):.3g})")
+    return (f"config5: a batch of {s_n} streams against each stream alone on the same "
+            "inputs, entries that differ: " + ", ".join(parts))
+
+
+def against_single(outs: torch.Tensor, single: torch.Tensor):
+    """Per frame of every stream, the share of pixels where the batched
+    outputs (S, T, H, W, C) differ from the single-stream ones, and the
+    share off by more than one level: the largest of each."""
+    diff = (outs.to(torch.int16) - single.to(torch.int16)).abs()
+    return (float((diff > 0).float().mean((2, 3, 4)).max()),
+            float((diff > 1).float().mean((2, 3, 4)).max()))
+
+
+def phase_streams(cfg, seed: int, dev, card: str) -> dict:
+    """Bench config 5 through the batched forms, in TRANSLATION_LOCK and in
+    GLOBAL_SMOOTHING: the batched step frame by frame and the stream-batched
+    offline chunk in chunks of STREAM_CHUNK, each from a fresh carry of
+    N_STREAMS streams (``init_batched_carry`` with the seed), against each
+    stream's own single-stream run (``Stabilizer.stabilize_frame`` from the
+    same stream key).  Returns per form the warp launches and batched
+    frames of both modes' runs, ms per batched frame and device events."""
+    import dataclasses
+
+    from video_stabilization_tpu_torch.config import StabilizationMode
+    from video_stabilization_tpu_torch.engine import (
+        Stabilizer, init_carry, make_offline_batched_fn)
+    from video_stabilization_tpu_torch.ops import affine_warp as aw
+    from video_stabilization_tpu_torch.parallel import init_batched_carry, make_batched_step_fn
+    from video_stabilization_tpu_torch.utils import prng, stage_profile
+
+    n_frames = STREAM_FRAMES
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    frames = stage_profile.footage(cfg, n_frames, seed, dev, streams=N_STREAMS)
+    hf, wf = cfg.frame_height, cfg.frame_width
+    keys = prng.split(prng.key(seed), N_STREAMS)
+    print(batch_rounding(cfg, frames, keys.to(dev), dev), flush=True)
+    counter = aw.fallback_counter(dev)
+    warm = 4
+    result = {"step": {"launches": 0, "frames": 0}, "offline": {"launches": 0, "frames": 0}}
+    for mode in (StabilizationMode.TRANSLATION_LOCK, StabilizationMode.GLOBAL_SMOOTHING):
+        cfg_m = dataclasses.replace(cfg, static_mode=int(mode))
+        tag = f"config5 {mode.name}"
+
+        # each stream on its own, from its stream key
+        single = []
+        for s in range(N_STREAMS):
+            stab = Stabilizer(cfg, mode, seed=seed, device=dev)
+            stab.carry = init_carry(cfg, int(mode), keys[s], dev)
+            single.append(torch.stack([stab.stabilize_frame(f) for f in frames[s]]))
+        single = torch.stack(single)
+
+        # the batched step: warm-up steps untimed, the last under the sync check
+        step = make_batched_step_fn(cfg_m)
+        carry = init_batched_carry(cfg_m, N_STREAMS, int(mode), prng.key(seed), dev)
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        outs, per_step = [], []
+        counter.zero_()
+        aw.launches = 0
+        for t in range(n_frames):
+            before = aw.launches
+            if t == warm - 1:
+                (carry, (out, _)), syncs = count_syncs(lambda: step(carry, frames[:, t]))
+                torch.cuda.synchronize()
+                ev0.record()
+            else:
+                carry, (out, _) = step(carry, frames[:, t])
+            per_step.append(aw.launches - before)
+            outs.append(out)
+        ev1.record()
+        torch.cuda.synchronize()
+        step_launches = aw.launches
+        step_fallbacks = int(counter)      # the one read of the device's count
+        ms_step = ev0.elapsed_time(ev1) / (n_frames - warm)
+        step_differ = against_single(torch.stack(outs, 1), single)
+        del outs
+        ev_step = device_events(lambda: step(carry, frames[:, -1]))
+
+        # the stream-batched chunk: the first chunk untimed, under the sync check
+        chunk_fn = make_offline_batched_fn(cfg_m)
+        carry = init_batched_carry(cfg_m, N_STREAMS, int(mode), prng.key(seed), dev)
+        events, outs, per_chunk = [], [], []
+        counter.zero_()
+        aw.launches = 0
+        for c, i in enumerate(range(0, n_frames, STREAM_CHUNK)):
+            part = frames[:, i:i + STREAM_CHUNK]
+            before = aw.launches
+            if c == 0:
+                (carry, (out, _)), chunk_syncs = count_syncs(lambda: chunk_fn(carry, part))
+                torch.cuda.synchronize()
+            else:
+                carry, (out, _) = chunk_fn(carry, part)
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            per_chunk.append(aw.launches - before)
+            outs.append(out)
+        torch.cuda.synchronize()
+        chunk_launches = aw.launches
+        chunk_fallbacks = int(counter)     # the one read of the device's count
+        ms_chunk = events[0].elapsed_time(events[-1]) / (n_frames - STREAM_CHUNK)
+        chunk_differ = against_single(torch.cat(outs, 1), single)
+        del outs
+        ev_chunk = device_events(lambda: chunk_fn(carry, frames[:, -STREAM_CHUNK:])) / STREAM_CHUNK
+
+        # stream 0 alone (a batch of one) through the batched step
+        carry = dataclasses.replace(init_batched_carry(cfg_m, 1, int(mode), prng.key(seed), dev),
+                                    key=keys[:1].to(dev))
+        alone = []
+        for t in range(n_frames):
+            carry, (out, _) = step(carry, frames[:1, t])
+            alone.append(torch.equal(out[0], single[0, t]))
+
+        # one stream's streaming step, for device events per frame
+        stab = Stabilizer(cfg, mode, seed=seed, device=dev)
+        for f in frames[0, :2]:
+            stab.stabilize_frame(f)
+        ev_single = device_events(lambda: [stab.stabilize_frame(f) for f in
+                                           frames[0, 2:2 + STREAM_PROFILED]]) / STREAM_PROFILED
+        del single, stab, carry
+
+        print(f"{tag}: {N_STREAMS} streams x {n_frames} frames {hf}x{wf}; batched step warp "
+              f"launches {step_launches} (per step {sorted(set(per_step))}), offline chunks of "
+              f"{STREAM_CHUNK} {chunk_launches} (per chunk {per_chunk}); warps outside the "
+              f"envelope {step_fallbacks} and {chunk_fallbacks} (device count)", flush=True)
+        report_syncs(f"{tag} batched step", syncs, "step (the last warm-up one, untimed)")
+        report_syncs(f"{tag} offline", chunk_syncs, "chunk (the warm-up one, untimed)")
+        print(f"{tag}: vs each stream's single-stream run, per frame at most: batched step "
+              f"{step_differ[0]:.5f} of pixels differ, {step_differ[1]:.6f} by more than one "
+              f"level; offline {chunk_differ[0]:.5f}, {chunk_differ[1]:.6f} (<= "
+              f"{OFFLINE_DIFFER}, {OFFLINE_OFF_BY_MORE}); stream 0 alone through the "
+              f"batched step equals its run in {sum(alone)} of {n_frames} frames", flush=True)
+        print(f"{tag}: batched step {ms_step:.3f} ms per batched frame ({n_frames - warm} "
+              f"steady steps), {N_STREAMS * 1e3 / ms_step:.1f} frames/s in all, "
+              f"{1e3 / ms_step:.2f} per stream; offline {ms_chunk:.3f} ms per batched frame "
+              f"({n_frames - STREAM_CHUNK} frames in the chunks after the warm-up one), "
+              f"{N_STREAMS * 1e3 / ms_chunk:.1f} frames/s in all, {1e3 / ms_chunk:.2f} per "
+              f"stream (CUDA events); device events per batched frame {ev_step:.0f} step, "
+              f"{ev_chunk:.0f} offline vs {N_STREAMS} x {ev_single:.0f} = "
+              f"{N_STREAMS * ev_single:.0f} single-stream, torch.profiler; {card}", flush=True)
+        if syncs or chunk_syncs:
+            raise AssertionError(f"{tag}: the batched forms synchronized the host")
+        if set(per_step) != {BATCHED_LAUNCHES} or set(per_chunk) != {BATCHED_LAUNCHES}:
+            raise AssertionError(f"{tag}: warp launches per step {per_step}, per chunk "
+                                 f"{per_chunk}, not {BATCHED_LAUNCHES} each")
+        for name, (differ, off_more) in (("batched step", step_differ),
+                                         ("offline", chunk_differ)):
+            if not (differ <= OFFLINE_DIFFER and off_more <= OFFLINE_OFF_BY_MORE):
+                raise AssertionError(f"{tag}: {name} outputs differ from the single-stream "
+                                     f"runs: {differ} of pixels, {off_more} by more than one "
+                                     "level")
+        if not all(alone):
+            raise AssertionError(f"{tag}: stream 0 alone through the batched step differs from "
+                                 f"its single-stream run in frames "
+                                 f"{[t for t, same in enumerate(alone) if not same]}")
+        result["step"]["launches"] += step_launches
+        result["step"]["frames"] += n_frames
+        result["offline"]["launches"] += chunk_launches
+        result["offline"]["frames"] += n_frames
+        result[mode.name] = {"ms_step": ms_step, "ms_offline": ms_chunk,
+                             "events_step": ev_step, "events_offline": ev_chunk,
+                             "events_single": ev_single,
+                             "syncs": len(syncs) + len(chunk_syncs)}
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"config5: peak device memory {peak / 2 ** 30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated, {mem0 / 2 ** 30:.2f} GiB of it allocated before "
+          f"the phase); {card}", flush=True)
+    return result
 
 
 def main() -> int:
@@ -944,6 +1294,7 @@ def main() -> int:
 
     rng = np.random.default_rng(args.seed)
     kern = phase_kernel(dev, rng)
+    kern.update(phase_batched_kernel(dev, rng, kern.pop("times")))
     cfg3 = StabilizerConfig(frame_height=720, frame_width=1280, working_height=360,
                             past_frames=30, future_frames=15)
     frame, _ = render_clip(cfg3, 1, args.seed, dev)
@@ -968,13 +1319,21 @@ def main() -> int:
                          SIFT_OFFLINE_FRAMES, args.seed, dev, card, sift,
                          f" (the first {SIFT_OFFLINE_FRAMES} of the slice's {SIFT_FRAMES}: "
                          "a depth cut that keeps the smoke within its time)")
+    for run in (sl, orb, sift):       # the streaming slices' footage is done with
+        run.pop("footage")
+        run.pop("outs")
+    cfg5 = StabilizerConfig(frame_height=1080, frame_width=1920, working_height=360,
+                            past_frames=30, future_frames=15)
+    streams = phase_streams(cfg5, args.seed, dev, card)
 
     # launches: each main path's run, counted from 0 just before it; ms,
     # plain_ms and bound_ms are per frame.  The top-level numbers of a kernel
     # are those of the first path that runs it, "paths" holds each path's.
     print(f"host syncs per steady frame: config 1 {sl['syncs']}, config 3 {orb['syncs']}, "
           f"config 4 {sift['syncs']}; per offline chunk (the warm-up one): {off1['syncs']}, "
-          f"{off3['syncs']}, {off4['syncs']}", flush=True)
+          f"{off3['syncs']}, {off4['syncs']}; config 5, batched step and chunk: "
+          f"{streams['TRANSLATION_LOCK']['syncs']} (TRANSLATION_LOCK), "
+          f"{streams['GLOBAL_SMOOTHING']['syncs']} (GLOBAL_SMOOTHING)", flush=True)
     def counted(launches: int, run: dict) -> dict:
         return {"launches": launches, "launches_per_frame": launches / run["frames"]}
 
@@ -982,9 +1341,14 @@ def main() -> int:
         "config1": {**counted(sl["launches"], sl), **kern["config1"]},
         "config3": {**counted(orb["warp_launches"], orb), **kern["config3"]},
         "config4": {**counted(sift["warp_launches"], sift), **kern["config4"]},
-        "offline_config1": {**counted(off1["launches"], off1), **kern["config1"]},
-        "offline_config3": {**counted(off3["launches"], off3), **kern["config3"]},
-        "offline_config4": {**counted(off4["launches"], off4), **kern["config4"]}}
+        "offline_config1": {**counted(off1["launches"], off1), **kern["offline_config1"]},
+        "offline_config3": {**counted(off3["launches"], off3), **kern["offline_config3"]},
+        "offline_config4": {**counted(off4["launches"], off4), **kern["offline_config4"]},
+        # per batched frame: one frame of each of the 8 streams
+        "config5": {**counted(streams["step"]["launches"], streams["step"]),
+                    **kern["config5"]},
+        "offline_config5": {**counted(streams["offline"]["launches"], streams["offline"]),
+                            **kern["offline_config5"]}}
     fast_times = {k: fk[k] for k in ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by")}
     fast_paths = {"config3": {**counted(orb["fast_launches"], orb), **fast_times},
                   "offline_config3": {**counted(off3["fast_launches"], off3), **fast_times}}
@@ -994,7 +1358,7 @@ def main() -> int:
         "source": "video_stabilization_tpu_torch/csrc/affine_warp.cu",
         "replaces": "video_stabilization_tpu/ops/pallas_warp.py:65",
         **warp_paths["config1"],
-        "max_abs_err": kern["max_abs_err"],
+        "max_abs_err": max(kern["max_abs_err"], kern["max_abs_err_batched"]),
         "library_ms": None,
         "paths": warp_paths,
     }, {

@@ -1,6 +1,7 @@
-"""The CUDA kernels on the card (affine warp, FAST levels): each against its
-plain version, its input checks and its launch count; and ECC and the
-offline chunk step on the warp kernel against the same on the plain warp.  Marked ``gpu``:
+"""The CUDA kernels on the card (affine warp, one image or a batch; FAST
+levels): each against its plain version, its input checks and its launch
+count; and ECC, the offline chunk step and the stream-batched step on the
+warp kernel against the same on the plain warp.  Marked ``gpu``:
 skipped without a CUDA card (run on one with
 ``python -m pytest tests/test_torch_cuda.py -m gpu -q --noconftest``)."""
 
@@ -120,6 +121,90 @@ def test_kernel_rejects_bad_inputs(dev):
         aw.warp_affine(x, h.cpu())
 
 
+def mixed_batch(b, dev, seed=0):
+    """(B, 3, 3) transforms of the step's size, every fourth item 12 or 20
+    degrees outside the envelope."""
+    rng = np.random.default_rng(seed)
+    hs = []
+    for i in range(b):
+        theta = (12.0 if i % 8 == 3 else 20.0) if i % 4 == 3 else rng.uniform(-6, 6)
+        hs.append(rigid(theta, *rng.uniform(-4, 4, 2)))
+    return torch.from_numpy(np.stack(hs)).to(dev)
+
+
+@pytest.mark.parametrize("shape", [(8, 3, 1080, 1920), (64, 1, 360, 640), (64, 1, 90, 160)])
+def test_batched_kernel_matches_plain(dev, shape):
+    """A batch at config 5's shapes (8 streams' output frames; 64 LK pairs
+    of an 8 x 8 chunk at levels 0 and 2) in one launch equals the plain
+    version item by item, per-item borders; the device counter rises by the
+    number of items outside the envelope."""
+    b, c, h, w = shape
+    rng = np.random.default_rng(4)
+    src = torch.from_numpy(rng.uniform(0, 255, (b, h, w, c)).astype(np.float32)).to(dev)
+    if c == 1:
+        src = src[..., 0]
+    hs = mixed_batch(b, dev)
+    border = (torch.from_numpy(rng.uniform(0, 255, (b, c)).astype(np.float32)).to(dev)
+              if c == 3 else 0.0)
+    counter = aw.fallback_counter(dev)
+    counter.zero_()
+    before = aw.launches
+    k = aw.warp_affine(src, hs, border)
+    assert aw.launches == before + 1
+    outside = int((~aw.affine_envelope_ok(hs)).sum())
+    assert outside == b // 4
+    assert int(counter) == outside
+    p = aw.warp_affine_plain(src, hs, border)
+    assert k.shape == src.shape and k.is_contiguous()
+    assert torch.equal(k, p)
+
+
+def test_batched_kernel_strided_input(dev):
+    """A batch of (H, W, C) views of planar (B, C, H, W) memory, a shared
+    (C,) border, and the forced 2-pass far outside the envelope."""
+    x = torch.from_numpy(np.random.default_rng(5).uniform(0, 255, (4, 3, 180, 320))
+                         .astype(np.float32)).to(dev)
+    src = x.permute(0, 2, 3, 1)
+    assert not src.is_contiguous()
+    hs = mixed_batch(4, dev, seed=1)
+    border = torch.tensor([3.0, 90.0, 200.0], device=dev)
+    for fallback in (True, False):
+        assert torch.equal(aw.warp_affine(src, hs, border, projective_fallback=fallback),
+                           aw.warp_affine_plain(src, hs, border,
+                                                projective_fallback=fallback))
+
+
+@pytest.mark.parametrize("shape", [(1, 360, 640), (3, 1080, 1920)])
+def test_batch_of_one_equals_one_image(dev, shape):
+    """B = 1 is today's unbatched launch: equal outputs, one launch each."""
+    src = frame(shape, "hwc", dev, seed=6)
+    if shape[0] == 1:
+        src = src[..., 0]
+    h = torch.from_numpy(rigid(3.0, -2.6, 1.9)).to(dev)
+    before = aw.launches
+    one = aw.warp_affine(src, h, 7.0)
+    batch = aw.warp_affine(src[None], h[None], 7.0)
+    assert aw.launches == before + 2
+    assert torch.equal(batch[0], one)
+
+
+def test_batched_kernel_rejects_bad_inputs(dev):
+    x = torch.rand(3, 16, 32, device=dev)
+    hs = torch.eye(3, device=dev).expand(3, 3, 3)
+    with pytest.raises(ValueError, match="B = 4"):
+        aw.warp_affine(x, torch.eye(3, device=dev).expand(4, 3, 3))
+    with pytest.raises(ValueError, match="per-item border"):
+        aw.warp_affine(x[..., None], hs, torch.zeros(2, 1, device=dev))
+    big = torch.eye(3, device=dev).expand(aw.MAX_BATCH + 1, 3, 3)
+    with pytest.raises(ValueError, match="exceeds"):
+        aw.warp_affine(torch.zeros(aw.MAX_BATCH + 1, 1, 1, device=dev), big)
+    # an image whose elements lie 2^31 or more apart: the kernel's offsets
+    # within an item are 32-bit
+    wide = torch.empty_strided((2, 2), (2 ** 31, 1), device=dev)
+    with pytest.raises(ValueError, match="2\\^31"):
+        aw.warp_affine(wide, torch.eye(3, device=dev))
+
+
 # the ten level shapes of a 360x640 working image (tests/test_torch_orb.py)
 LEVEL_SHAPES = [(360, 640), (300, 533), (250, 444), (208, 370), (174, 309),
                 (145, 257), (121, 214), (100, 179), (84, 149), (70, 124)]
@@ -201,8 +286,9 @@ def test_offline_kernel_matches_plain_warp(dev, mode):
     """The offline chunk step on the card with the warp kernel equals the
     same step on the card with the plain warp in its place (LK, ECC and the
     output warp), outputs and carry bit for bit; K = 4 over 8 frames of a
-    240x320 clip, SIFT with 5 ECC iterations.  Each frame launches the
-    kernel 5 times (SIFT: 5 + 7 ECC warps)."""
+    240x320 clip, SIFT with 5 ECC iterations.  Each chunk launches the
+    kernel 5 times (4 LK warps and the output warp, each over the chunk),
+    and SIFT 7 ECC warps per frame on top."""
     from unittest import mock
 
     from video_stabilization_tpu_torch.config import (
@@ -234,13 +320,66 @@ def test_offline_kernel_matches_plain_warp(dev, mode):
 
     before = aw.launches
     c_k, out_k = run()
-    per_frame = 5 + (cfg.ecc.max_iters + 2 if cfg.ecc.enabled else 0)
-    assert aw.launches - before == per_frame * 8
+    launches = 2 * 5 + (cfg.ecc.max_iters + 2 if cfg.ecc.enabled else 0) * 8
+    assert aw.launches - before == launches
     with mock.patch.object(stabilizer, "warp_affine", aw.warp_affine_plain), \
             mock.patch.object(lk_dense, "warp_affine", aw.warp_affine_plain), \
             mock.patch.object(ecc, "warp_affine", aw.warp_affine_plain):
         c_p, out_p = run()
-    assert aw.launches - before == per_frame * 8
+    assert aw.launches - before == launches
     assert torch.equal(out_k, out_p)
     for name in ("last_h", "transforms", "lock_prev_h", "corners_prev"):
         assert torch.equal(getattr(c_k, name), getattr(c_p, name)), name
+
+
+def test_batched_step_kernel_matches_plain_warp(dev):
+    """The stream-batched step (4 streams) and offline chunk (K = 3) on the
+    card with the warp kernel equal the same with the plain warp in its
+    place, bit for bit; each call launches the kernel 5 times."""
+    from unittest import mock
+
+    from video_stabilization_tpu_torch.config import StabilizationMode, StabilizerConfig
+    from video_stabilization_tpu_torch.engine import make_offline_batched_fn, stabilizer
+    from video_stabilization_tpu_torch.ops import lk_dense
+    from video_stabilization_tpu_torch.parallel import init_batched_carry, make_batched_step_fn
+    from video_stabilization_tpu_torch.sim import (
+        DEFAULT_APP_PARAMS, make_default_texture, render_frame, shake_trajectory)
+    from video_stabilization_tpu_torch.utils import prng
+
+    m = StabilizationMode.TRANSLATION_LOCK
+    cfg = StabilizerConfig(past_frames=4, future_frames=2, working_height=120,
+                           frame_height=240, frame_width=320, static_mode=int(m))
+    rng = np.random.default_rng(0)
+    tex = torch.from_numpy(make_default_texture(rng, 256)).to(dev)
+    streams = []
+    for _ in range(4):
+        traj = shake_trajectory(rng.standard_normal((6, 3)), rng.standard_normal(6),
+                                DEFAULT_APP_PARAMS, pos_amplitude=0.004, roll_amplitude=0.3,
+                                device=dev)
+        streams.append(torch.stack([render_frame(tex, traj[i], 240, 320) for i in range(6)]))
+    frames = torch.stack(streams)                       # (S, T, H, W, C)
+
+    def run():
+        step, chunk = make_batched_step_fn(cfg), make_offline_batched_fn(cfg)
+        a = init_batched_carry(cfg, 4, int(m), prng.key(3), dev)
+        b = init_batched_carry(cfg, 4, int(m), prng.key(3), dev)
+        outs = []
+        for t in range(6):
+            a, (out, _) = step(a, frames[:, t])
+            outs.append(out)
+        for i in (0, 3):
+            b, (out, _) = chunk(b, frames[:, i:i + 3])
+            outs.append(out)
+        return a, b, outs
+
+    before = aw.launches
+    a_k, b_k, outs_k = run()
+    assert aw.launches - before == 5 * (6 + 2)
+    with mock.patch.object(stabilizer, "warp_affine", aw.warp_affine_plain), \
+            mock.patch.object(lk_dense, "warp_affine", aw.warp_affine_plain):
+        a_p, b_p, outs_p = run()
+    for k, p in zip(outs_k, outs_p):
+        assert torch.equal(k, p)
+    for name in ("last_h", "transforms", "accum_h", "corners_prev"):
+        assert torch.equal(getattr(a_k, name), getattr(a_p, name)), name
+        assert torch.equal(getattr(b_k, name), getattr(b_p, name)), name

@@ -5,6 +5,8 @@ of tests/test_engine.py), reduced to working-resolution gray once and fed
 to both packages as numpy arrays.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +33,7 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 FH, FW, WH, WW = 240, 320, 120, 160
 _j_lk = jax.jit(j_lk, static_argnames="config")
+_j_lk_vmapped = jax.jit(jax.vmap(functools.partial(j_lk, config=LKConfig())))
 _j_min_eig = jax.jit(j_min_eig)
 
 
@@ -95,3 +98,50 @@ def test_lk_track_dense(grays, pair):
     ht = t_ransac(torch.tensor(pts), tb.points, tb.status, prng.key(1),
                   tconfig.RansacConfig(num_hypotheses=128)).h
     assert corner_drift(np.asarray(hj, float), ht.double().numpy()) < 0.05
+
+
+PAIRS = [(0, 1), (2, 3), (4, 5)]
+
+
+def batched_lk_inputs(grays):
+    """The three pairs' pyramids (levels (3, h, w)) and corners (3, N, 2)."""
+    cfg = GFTTConfig(max_features=256)
+    corners = [j_gftt(jnp.asarray(grays[a]), cfg) for a, _ in PAIRS]
+    pts = np.stack([np.asarray(c.points) for c in corners])
+    mask = np.stack([np.asarray(c.mask) for c in corners])
+    prev = [np.stack(levels) for levels in zip(*[
+        [np.asarray(x) for x in j_pyr(jnp.asarray(grays[a]), 3)] for a, _ in PAIRS])]
+    nxt = [np.stack(levels) for levels in zip(*[
+        [np.asarray(x) for x in j_pyr(jnp.asarray(grays[b]), 3)] for _, b in PAIRS])]
+    return prev, nxt, pts, mask
+
+
+def test_lk_track_dense_batched_matches_jax_vmap(grays):
+    """Three pairs in one batched call against the JAX ``lk_track_dense``
+    under ``jax.vmap``, pair by pair at ``test_lk_track_dense``'s tolerance."""
+    prev, nxt, pts, mask = batched_lk_inputs(grays)
+    ja = _j_lk_vmapped([jnp.asarray(x) for x in prev], [jnp.asarray(x) for x in nxt],
+                       jnp.asarray(pts), jnp.asarray(mask))
+    tb = t_lk([torch.from_numpy(x) for x in prev], [torch.from_numpy(x) for x in nxt],
+              torch.from_numpy(pts), torch.from_numpy(mask), tconfig.LKConfig())
+    assert tb.points.shape == pts.shape and tb.status.shape == mask.shape
+    for i in range(len(PAIRS)):
+        js, ts = np.asarray(ja.status[i]), tb.status[i].numpy()
+        assert js.sum() > 50
+        assert (js == ts).mean() >= 0.98
+        both = js & ts
+        assert np.abs(np.asarray(ja.points[i])[both] - tb.points[i].numpy()[both]).max() < 0.1
+
+
+def test_lk_track_dense_batch_equals_per_pair(grays):
+    """One batched call equals the per-pair calls bit for bit on the CPU
+    (its banded matmuls and 2x2 products round each pair as alone)."""
+    prev, nxt, pts, mask = (torch.from_numpy(x) if isinstance(x, np.ndarray)
+                            else [torch.from_numpy(y) for y in x]
+                            for x in batched_lk_inputs(grays))
+    batched = t_lk(prev, nxt, pts, mask, tconfig.LKConfig())
+    for i in range(len(PAIRS)):
+        one = t_lk([x[i] for x in prev], [x[i] for x in nxt], pts[i], mask[i],
+                   tconfig.LKConfig())
+        for name in ("points", "status", "error"):
+            assert torch.equal(getattr(batched, name)[i], getattr(one, name)), (i, name)

@@ -41,6 +41,7 @@ def test_port_imports_without_jax():
         "assert 'video_stabilization_tpu_torch.ops.fast' in names, names\n"
         "assert 'video_stabilization_tpu_torch.engine.lock' in names, names\n"
         "assert 'video_stabilization_tpu_torch.engine.offline' in names, names\n"
+        "assert 'video_stabilization_tpu_torch.parallel.streams' in names, names\n"
         "print('ok')")
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"

@@ -160,6 +160,46 @@ def test_warp_affine_strided_hwc_matches_jax(theta, tx, ty):
     close(a, b, WARP_ATOL if inside else 1e-3)
 
 
+# a batch that mixes items inside (0 and 3 degrees) and outside (12 and 20
+# degrees) the envelope
+BATCH_CASES = [(0.0, 1.5, -2.0), (12.0, 2.0, -1.0), (3.0, -2.6, 1.9), (20.0, 4.0, -3.0)]
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("border", ["number", "shared", "per_item"])
+def test_batched_warp_equals_per_item(channels, border):
+    """One batched ``warp_affine`` (the plain version on the CPU) equals its
+    items' own warps bit for bit, each item's branch decided on its own, with
+    a border that is a number, one (C,) for all, or (B, C) per item."""
+    b = len(BATCH_CASES)
+    x = torch.from_numpy(content((b, 40, 56, channels), 9))
+    if channels == 1:
+        x = x[..., 0]
+    h = torch.from_numpy(np.stack([rigid(*case) for case in BATCH_CASES]))
+    per_item = torch.from_numpy(content((b, channels), 10))
+    bv = {"number": 17.0, "shared": per_item[0], "per_item": per_item}[border]
+    before = taw.gather_fallbacks
+    out = taw.warp_affine(x, h, bv)
+    assert taw.gather_fallbacks == before + 2
+    assert out.shape == x.shape
+    for i in range(b):
+        one = taw.warp_affine(x[i], h[i], per_item[i] if border == "per_item" else bv)
+        assert torch.equal(out[i], one), i
+
+
+def test_batched_warp_shapes():
+    """``h``'s shape tells a batch from one image: a (3, 3) ``h`` takes a
+    3-dim ``src`` as (H, W, C), a (B, 3, 3) one as (B, H, W) and refuses a
+    leading size other than B or a per-item border of another shape."""
+    x = torch.from_numpy(content((3, 10, 12), 11))
+    assert taw.warp_affine(x, torch.eye(3)).shape == (3, 10, 12)
+    assert torch.equal(taw.warp_affine(x, torch.eye(3).expand(3, 3, 3)), x)
+    with pytest.raises(ValueError, match="B = 4"):
+        taw.warp_affine(x, torch.eye(3).expand(4, 3, 3))
+    with pytest.raises(ValueError, match="per-item border"):
+        taw.warp_affine(x[..., None], torch.eye(3).expand(3, 3, 3), torch.zeros(2, 1))
+
+
 @pytest.mark.parametrize("theta,s", [(0.0, 1.0), (3.0, 1.0), (8.5, 1.0), (9.5, 1.0),
                                      (-12.0, 1.0), (20.0, 1.0), (2.0, 1.2), (0.0, 3.0),
                                      (90.0, 1.0)])

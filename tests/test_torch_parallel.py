@@ -1,0 +1,322 @@
+"""The port's stream-batched forms (parallel/streams.py,
+engine/offline.py::make_offline_batched_fn) against the JAX package's and
+against the port's own single-stream step.
+
+Mirrors tests/test_parallel.py (TestBatchedStep, the one-device cases of
+TestShardedStep) and the batched parts of tests/test_offline.py at
+``tiny_config()``'s size.  Two JAX functions are compiled, once each: the
+batched step in GLOBAL_SMOOTHING and the stream-batched offline chunk in
+ACCUMULATED_FULL_LOCK (two streams, K = 3), which serves both the offline
+comparison and the envelope telemetry.
+
+Tolerances are the JAX tests' own, with equal inlier counts throughout:
+- the port's batched forms against its single-stream step,
+  tests/test_parallel.py's: u8 outputs off by at most one level on fewer
+  than 1e-3 of the pixels;
+- the port against the JAX package, tests/test_offline.py's
+  ``_assert_frames_close`` (at most one level on at most 2% of the pixels,
+  as tests/test_torch_offline.py holds the offline chunk to JAX's) and the
+  step's corner drift of tests/test_torch_engine.py.  The single-stream
+  steps of the two packages already differ there: on stream 1's frame 5
+  below, 0.137% of the pixels by one level, ``last_h`` by 8e-4, while the
+  port's batched step equals its single-stream step on that frame.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from video_stabilization_tpu.config import StabilizationMode
+from video_stabilization_tpu.engine import make_offline_batched_fn as j_make_offline_batched_fn
+from video_stabilization_tpu.parallel import init_batched_carry as j_init_batched_carry
+from video_stabilization_tpu.parallel import make_batched_step_fn as j_make_batched_step_fn
+from video_stabilization_tpu_torch.config import config_from_fields
+from video_stabilization_tpu_torch.engine import (
+    Stabilizer, carry_to_numpy, map_carry, offline_batched_chunk_step, offline_chunk_step)
+from video_stabilization_tpu_torch.parallel import (
+    carry_stream, init_batched_carry, make_batched_scan_fn, make_batched_step_fn,
+    make_sharded_offline_fn, make_sharded_step_fn, make_stream_mesh, shard_carry)
+from video_stabilization_tpu_torch.engine import make_offline_batched_fn
+from video_stabilization_tpu_torch.sim import (
+    DEFAULT_APP_PARAMS, make_default_texture, render_frame, shake_trajectory)
+from video_stabilization_tpu_torch.utils import prng
+from test_offline import _assert_frames_close
+from test_parallel import FH, FW, tiny_config
+from test_torch_engine import LAST_H_DRIFT, corner_drift, jax_carry_arrays
+from torch_threads import one_torch_thread  # noqa: F401
+
+M = StabilizationMode
+N_STREAMS, N_FRAMES = 4, 6
+ACCUM = dataclasses.replace(tiny_config(), static_mode=int(M.ACCUMULATED_FULL_LOCK))
+MAX_DIFFER = 1e-3        # share of pixels off by one level (tests/test_parallel.py)
+
+
+def assert_frames_close(a, b, where=""):
+    """u8 frames off by at most one level on fewer than ``MAX_DIFFER`` of
+    the pixels: vmap and batching change float order, so a pixel on a .5
+    rounding boundary may flip."""
+    diff = np.abs(np.asarray(a).astype(np.int16) - np.asarray(b).astype(np.int16))
+    assert diff.max() <= 1, f"{where}: max diff {diff.max()}"
+    assert (diff > 0).mean() < MAX_DIFFER, f"{where}: {(diff > 0).mean():.5f} of pixels differ"
+
+
+@pytest.fixture(scope="module")
+def stream_frames():
+    """(T, S, H, W, 3) u8: four streams of six shaky frames, one trajectory
+    seed each, over one texture (the port's simulator; both packages take
+    the same frames)."""
+    tex = torch.from_numpy(make_default_texture(np.random.default_rng(0), 128))
+    streams = []
+    for s in range(N_STREAMS):
+        rng = np.random.default_rng(10 + s)
+        traj = shake_trajectory(rng.standard_normal((N_FRAMES, 3)),
+                                rng.standard_normal(N_FRAMES), DEFAULT_APP_PARAMS,
+                                pos_amplitude=0.003, roll_amplitude=0.3)
+        streams.append(np.stack([render_frame(tex, traj[i], FH, FW).numpy()
+                                 for i in range(N_FRAMES)]))
+    return np.stack(streams, 1)
+
+
+@pytest.fixture(scope="module")
+def j_offline_accum():
+    """The JAX stream-batched offline chunk, ACCUMULATED_FULL_LOCK, compiled
+    once for two streams and K = 3."""
+    return j_make_offline_batched_fn(ACCUM)
+
+
+def port_carry(cfg, n, mode, seed):
+    return init_batched_carry(config_from_fields(cfg), n, int(mode), prng.key(seed), "cpu")
+
+
+@pytest.mark.parametrize("seed,n", [(7, 4), (0, 8), (2 ** 32 - 1, 3)])
+def test_split_matches_jax(seed, n):
+    want = np.asarray(jax.random.key_data(jax.random.split(jax.random.key(seed), n)))
+    got = prng.split(prng.key(seed), n).numpy()
+    np.testing.assert_array_equal(got, want.astype(np.int64))
+
+
+def test_init_batched_carry_matches_jax():
+    """Every tensor of the port's batched carry equals the JAX one's."""
+    cfg = tiny_config()
+    want = jax_carry_arrays(j_init_batched_carry(cfg, 3, 0, jax.random.key(7)))
+    got = carry_to_numpy(port_carry(cfg, 3, 0, 7))
+    assert set(got) == set(want)
+    for name, arr in want.items():
+        np.testing.assert_array_equal(got[name], arr, err_msg=name)
+
+
+def test_batched_step_matches_jax(stream_frames):
+    """Four streams, six frames: the port's batched step against the JAX
+    package's ``make_batched_step_fn`` from carries made from one seed."""
+    cfg = tiny_config()
+    jstep = j_make_batched_step_fn(cfg)
+    tstep = make_batched_step_fn(config_from_fields(cfg))
+    jc = j_init_batched_carry(cfg, N_STREAMS, 0, jax.random.key(7))
+    tc = port_carry(cfg, N_STREAMS, 0, 7)
+    for t in range(N_FRAMES):
+        jc, (jout, _) = jstep(jc, jnp.asarray(stream_frames[t]))
+        tc, (tout, valid) = tstep(tc, torch.from_numpy(stream_frames[t]))
+        assert tout.shape == (N_STREAMS, FH, FW, 3) and valid.all()
+        for s in range(N_STREAMS):
+            _assert_frames_close(tout[s].numpy(), np.asarray(jout[s]))
+            drift = corner_drift(np.asarray(jc.last_h[s], float),
+                                 tc.last_h[s].double().numpy(), cfg)
+            assert drift <= LAST_H_DRIFT, f"stream {s} frame {t}: last_h drift {drift}"
+        np.testing.assert_array_equal(tc.last_inliers.numpy(), np.asarray(jc.last_inliers))
+        np.testing.assert_array_equal(tc.n.numpy(), np.asarray(jc.n))
+        np.testing.assert_array_equal(tc.envelope_violations.numpy(),
+                                      np.asarray(jc.envelope_violations))
+
+
+def test_batched_matches_single(stream_frames):
+    """TestBatchedStep::test_batched_matches_single on the port: each
+    stream of the batched step against the single-stream step on its own
+    slice of the batched carry (the slices are copies: the single steps
+    leave the batched ring alone)."""
+    cfg = config_from_fields(tiny_config())
+    bstep = make_batched_step_fn(cfg)
+    bcarry = port_carry(tiny_config(), N_STREAMS, 0, 7)
+    singles = []
+    for s in range(N_STREAMS):
+        one = Stabilizer(cfg, M.GLOBAL_SMOOTHING, device="cpu")
+        one.carry = carry_stream(bcarry, s)
+        singles.append(one)
+    for t in range(N_FRAMES):
+        bcarry, (bout, _) = bstep(bcarry, torch.from_numpy(stream_frames[t]))
+        for s, one in enumerate(singles):
+            sout = one.stabilize_frame(stream_frames[t, s])
+            assert_frames_close(bout[s].numpy(), sout.numpy(), f"stream {s} frame {t}")
+            assert int(bcarry.last_inliers[s]) == int(one.carry.last_inliers)
+    for s, one in enumerate(singles):
+        assert torch.equal(bcarry.frames[s], one.carry.frames)
+        assert torch.equal(bcarry.key[s], one.carry.key)
+
+
+def test_batched_scan_matches_step(stream_frames):
+    """The scan over T frames is T batched steps (bit for bit)."""
+    cfg = config_from_fields(tiny_config())
+    c_scan, (outs, valid) = make_batched_scan_fn(cfg)(
+        port_carry(tiny_config(), N_STREAMS, 0, 3), torch.from_numpy(stream_frames[:3]))
+    assert outs.shape == (3, N_STREAMS, FH, FW, 3) and valid.shape == (3, N_STREAMS)
+    step = make_batched_step_fn(cfg)
+    c = port_carry(tiny_config(), N_STREAMS, 0, 3)
+    for t in range(3):
+        c, (out, _) = step(c, torch.from_numpy(stream_frames[t]))
+        assert torch.equal(out, outs[t])
+    assert torch.equal(c.last_h, c_scan.last_h)
+
+
+def test_streams_keep_their_own_frame_counters(stream_frames):
+    """Streams at different frame counts in one batched chunk: each keeps
+    its own ``fold_in`` keys, ring slots and window.  Stream 1 has already
+    taken four frames; each stream of the batched chunk against its own
+    single-stream chunk."""
+    cfg = config_from_fields(tiny_config())
+    fresh = port_carry(tiny_config(), 2, 0, 5)
+    ahead, _ = offline_chunk_step(carry_stream(fresh, 1),
+                                  torch.from_numpy(stream_frames[:4, 1]), cfg)
+    starts = [carry_stream(fresh, 0), ahead]
+    batched = map_carry(lambda *xs: torch.stack(xs), *starts)      # copies
+    assert batched.n.tolist() == [0, 4]
+    chunk = torch.from_numpy(np.stack([stream_frames[:3, 0], stream_frames[3:6, 1]]))
+    batched, (outs, _) = offline_batched_chunk_step(batched, chunk, cfg)
+    for s, c in enumerate(starts):
+        c, (out, _) = offline_chunk_step(c, chunk[s], cfg)
+        assert_frames_close(outs[s].numpy(), out.numpy(), f"stream {s}")
+        assert torch.equal(batched.frames[s], c.frames)
+        np.testing.assert_allclose(batched.transforms[s].numpy(), c.transforms.numpy(),
+                                   atol=1e-6)
+    assert batched.n.tolist() == [3, 7]
+
+
+def test_offline_batched_matches_jax(stream_frames, j_offline_accum):
+    """Two streams, two chunks of K = 3, ACCUMULATED_FULL_LOCK: the port's
+    ``make_offline_batched_fn`` against the JAX package's (K below the JAX
+    ring fault of ROADMAP Queue 3, which needs K >= past_frames + 2)."""
+    fn = make_offline_batched_fn(config_from_fields(ACCUM))
+    jc = j_init_batched_carry(ACCUM, 2, int(M.ACCUMULATED_FULL_LOCK), jax.random.key(4))
+    tc = port_carry(ACCUM, 2, M.ACCUMULATED_FULL_LOCK, 4)
+    for i in (0, 3):
+        chunk = np.swapaxes(stream_frames[i:i + 3, :2], 0, 1)      # (S, K, H, W, C)
+        jc, (jout, _) = j_offline_accum(jc, jnp.asarray(chunk))
+        tc, (tout, valid) = fn(tc, torch.from_numpy(chunk))
+        assert tout.shape == chunk.shape and valid.shape == (2, 3)
+        for s in range(2):
+            _assert_frames_close(tout[s].numpy(), np.asarray(jout[s]))
+        np.testing.assert_array_equal(tc.last_inliers.numpy(), np.asarray(jc.last_inliers))
+    for s in range(2):
+        for name in ("accum_h", "last_h"):
+            drift = corner_drift(np.asarray(getattr(jc, name)[s], float),
+                                 getattr(tc, name)[s].double().numpy(), ACCUM)
+            assert drift <= LAST_H_DRIFT, f"stream {s} {name} drift {drift}"
+    assert tc.n.tolist() == [6, 6]
+
+
+def test_envelope_violation_telemetry(stream_frames, j_offline_accum):
+    """tests/test_offline.py::test_envelope_violation_telemetry with the JAX
+    function's counts: stream 1's accumulated lock turned 25° past the
+    warp's ~9° envelope, 8 frames in; the stream-batched chunk (no output
+    fallback) counts each of its frames, stream 0 none.  Two chunks of
+    K = 3 (the JAX test's K = 4 at past 2 meets the JAX ring fault, and
+    pixels outside the envelope differ between the JAX Pallas copy budget
+    and the port's 2-pass warp, so only the counts are compared)."""
+    th = np.deg2rad(25.0)
+    big_rot = np.array([[np.cos(th), -np.sin(th), 0.0], [np.sin(th), np.cos(th), 0.0],
+                        [0.0, 0.0, 1.0]], np.float32)
+    accum = np.stack([np.eye(3, dtype=np.float32), big_rot])
+    mode = int(M.ACCUMULATED_FULL_LOCK)
+    jc = j_init_batched_carry(ACCUM, 2, mode, jax.random.key(0))
+    jc = jc._replace(accum_h=jnp.asarray(accum), accum_active=jnp.ones((2,), bool),
+                     n=jnp.full((2,), 8, jnp.int32))
+    tc = port_carry(ACCUM, 2, mode, 0)
+    tc = dataclasses.replace(tc, accum_h=torch.from_numpy(accum),
+                             accum_active=torch.ones(2, dtype=torch.bool),
+                             n=torch.full((2,), 8, dtype=torch.int32))
+    fn = make_offline_batched_fn(config_from_fields(ACCUM))
+    for i in (0, 3):
+        chunk = np.swapaxes(stream_frames[i:i + 3, :1].repeat(2, 1), 0, 1)
+        jc, _ = j_offline_accum(jc, jnp.asarray(chunk))
+        tc, _ = fn(tc, torch.from_numpy(chunk))
+    viol = tc.envelope_violations.tolist()
+    assert viol[0] == 0 and viol[1] >= 4, viol
+    assert viol == np.asarray(jc.envelope_violations).tolist()
+
+
+def test_sharded_matches_batched(stream_frames):
+    """TestShardedStep::test_sharded_matches_batched on a one-device mesh:
+    equal outputs."""
+    cfg = config_from_fields(tiny_config())
+    mesh = make_stream_mesh(["cpu"])
+    sstep = make_sharded_step_fn(cfg, mesh)
+    bstep = make_batched_step_fn(cfg)
+    cs = shard_carry(port_carry(tiny_config(), N_STREAMS, 0, 2), mesh)
+    cb = port_carry(tiny_config(), N_STREAMS, 0, 2)
+    frames = torch.from_numpy(np.repeat(stream_frames[0, :1], N_STREAMS, 0))
+    for _ in range(2):
+        cs, (outs, _) = sstep(cs, frames)
+        cb, (outb, _) = bstep(cb, frames)
+    assert torch.equal(outs, outb)
+
+
+def test_sharded_offline_matches_streaming(stream_frames):
+    """TestShardedStep::test_sharded_offline_matches_streaming on a
+    one-device mesh: a K = 3 chunk of every stream against stream 0's
+    streaming step."""
+    cfg = config_from_fields(tiny_config())
+    mesh = make_stream_mesh(["cpu"])
+    k = 3
+    frames = np.repeat(stream_frames[:k, :1], N_STREAMS, 1)
+    co = shard_carry(port_carry(tiny_config(), N_STREAMS, 0, 3), mesh)
+    co, (outs_o, _) = make_sharded_offline_fn(cfg, mesh)(
+        co, torch.from_numpy(np.swapaxes(frames, 0, 1)))
+    one = Stabilizer(cfg, M.GLOBAL_SMOOTHING, device="cpu")
+    one.carry = carry_stream(port_carry(tiny_config(), N_STREAMS, 0, 3), 0)
+    outs_s = np.stack([one.stabilize_frame(frames[t, 0]).numpy() for t in range(k)])
+    diff = np.abs(outs_o[0].numpy().astype(np.int16) - outs_s.astype(np.int16))
+    assert diff.max() <= 1
+    assert co.n.tolist() == [k] * N_STREAMS
+
+
+@pytest.mark.parametrize("make", ["step", "offline", "carry"])
+def test_mesh_of_two_devices_raises(make):
+    cfg = config_from_fields(tiny_config())
+    mesh = make_stream_mesh(["cpu", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 15"):
+        if make == "step":
+            make_sharded_step_fn(cfg, mesh)
+        elif make == "offline":
+            make_sharded_offline_fn(cfg, mesh)
+        else:
+            shard_carry(port_carry(tiny_config(), 2, 0, 0), mesh)
+
+
+@pytest.mark.parametrize("make", [make_batched_step_fn, make_batched_scan_fn,
+                                  make_offline_batched_fn, "sharded_step", "sharded_offline"])
+def test_batched_forms_require_static_mode(make):
+    """The port branches on a host mode: a batch without a pinned mode is
+    refused (the JAX package warns and runs every branch per stream)."""
+    cfg = config_from_fields(dataclasses.replace(tiny_config(), static_mode=None))
+    mesh = make_stream_mesh(["cpu"])
+    with pytest.raises(ValueError, match="requires config.static_mode"):
+        if make == "sharded_step":
+            make_sharded_step_fn(cfg, mesh)
+        elif make == "sharded_offline":
+            make_sharded_offline_fn(cfg, mesh)
+        else:
+            make(cfg)
+
+
+def test_batched_chunk_refuses_frames_off_the_carry_device():
+    """Frames on another device than the batched carry's are refused before
+    any stage runs; so is a frame batch of another stream count."""
+    cfg = config_from_fields(tiny_config())
+    carry = port_carry(tiny_config(), 2, 0, 0)
+    step = make_batched_step_fn(cfg)
+    with pytest.raises(ValueError, match="carry's device"):
+        step(carry, torch.empty((2, FH, FW, 3), dtype=torch.uint8, device="meta"))
+    with pytest.raises(ValueError, match="frames of 3 streams for a carry of 2"):
+        step(carry, torch.zeros((3, FH, FW, 3), dtype=torch.uint8))

@@ -13,8 +13,9 @@ Subpackages
 - ``motion`` : homography decompose/compose, similarity fitting, RANSAC.
 - ``ops``    : image ops, pyramid, gradients, GFTT, dense LK, warps, the
   registration filters, FAST, ORB, patch extraction, Hamming matching.
-- ``engine`` : carry, per-frame step, smoothing, registration lock,
-  ``Stabilizer``.
+- ``engine`` : carry, per-frame step, offline chunks, smoothing,
+  registration lock, ``Stabilizer``.
+- ``parallel``: many streams on one card (a stream dimension in the carry).
 - ``sim``    : the floor-texture camera simulator with analytic truth.
 - ``utils``  : the threefry PRNG and the CUDA kernel build helper.
 """

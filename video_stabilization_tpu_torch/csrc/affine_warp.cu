@@ -1,8 +1,9 @@
-// Affine warp of a (C, H, W) f32 image in one launch, with a constant border.
+// Affine warp of a batch of (C, H, W) f32 images in one launch, each item by
+// its own transform, with a constant border.
 //
 // Replaces ops/pallas_warp.py::_resample_kernel of the JAX package (its two
-// pallas_call passes in _warp_planes_pallas) and the branch of warp_affine
-// around it.  With the inverse (dst -> src) map hinv, the kernel derives on
+// pallas_call passes in _warp_planes_pallas, which the JAX package's vmap
+// gives a batch grid dimension) and the branch of warp_affine around it.  With the inverse (dst -> src) map hinv, the kernel derives on
 // the device, with the rounding of the plain PyTorch version in
 // ops/affine_warp.py (_pass_params, _span_ok):
 //
@@ -15,9 +16,12 @@
 // the caller turns the projective fallback off) it computes the 2-pass
 // Catmull-Smith result; outside, the direct bilinear gather of
 // ops/warp.py::warp_perspective, op for op.  Both then take border[c] where
-// the true inverse map sends an output pixel outside the source.  The branch
-// is uniform over the grid and no value goes to the host; a warp outside
-// the envelope adds one to a device counter.
+// the true inverse map sends an output pixel outside the source.  Item b of
+// the batch is grid slice blockIdx.z = b: it reads its own inverse map, its
+// own border and its image at the batch strides, so the branch is uniform
+// within each item and one launch serves a batch that mixes items inside and
+// outside the envelope.  No value goes to the host; each item outside the
+// envelope adds one to a device counter (block (0, 0, b) adds it).
 //
 // Bound on this card: device-memory bytes, one read of the input and one
 // write of the output (8 B/px; about 50 MB and 0.015 ms at 3.35 TB/s for the
@@ -56,12 +60,13 @@ constexpr float kCopies = 26.0f;                     // pallas_warp.COPIES
 struct WarpArgs {
   const float* src;
   float* out;
-  const float* hinv;      // 3x3 row-major, on the device
-  const float* border;    // (C,) on the device, or null: border_value
+  const float* hinv;      // 3x3 row-major per item, on the device
+  const float* border;    // (C,) per item on the device, or null: border_value
   float border_value;
   int* fallbacks;         // warps that took the gather
-  long long s_c, s_y, s_x;
-  long long o_c, o_y, o_x;
+  long long s_b, s_c, s_y, s_x;
+  long long o_b, o_c, o_y, o_x;
+  long long border_stride;  // elements from one item's border to the next
   int c, h, w;
   int projective_fallback;
 };
@@ -163,7 +168,15 @@ __device__ __forceinline__ int div_small(int e, float inv_n) {
 // channels then go one by one).  Four blocks of 256 threads share an SM
 // (64 registers a thread, 4 x 33 KB of shared memory).
 template <int kC>
-__global__ void __launch_bounds__(kThreads, 4) affine_warp_kernel(WarpArgs a) {
+__global__ void __launch_bounds__(kThreads, 4) affine_warp_kernel(WarpArgs args) {
+  // this block's item: its image, output, inverse map and border
+  const int item = blockIdx.z;
+  WarpArgs a = args;
+  a.src = args.src + item * args.s_b;
+  a.out = args.out + item * args.o_b;
+  a.hinv = args.hinv + 9 * item;
+  if (args.border != nullptr) a.border = args.border + item * args.border_stride;
+
   // stage-1 items a thread loads before it uses any
   constexpr int kBatch = kC == 1 ? 4 : 2;
   __shared__ float buf[kBuf];
@@ -192,6 +205,7 @@ __global__ void __launch_bounds__(kThreads, 4) affine_warp_kernel(WarpArgs a) {
   const int r0 = threadIdx.x / kTileX;                // rows r0, r0 + 4, ...
 
   if (a.projective_fallback && !envelope) {
+    // one count per item outside the envelope
     if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) atomicAdd(a.fallbacks, 1);
     for (int j = 0; j < kPix; ++j) {
       const int y = y0 + r0 + j * kRowsPerPass;
@@ -245,8 +259,10 @@ __global__ void __launch_bounds__(kThreads, 4) affine_warp_kernel(WarpArgs a) {
     const int n_items = n_rows * n_span;
     const float inv_span = 1.0f / static_cast<float>(n_span);
     for (int first = threadIdx.x; first < n_items; first += kThreads * kBatch) {
-      const float* p0[kBatch];
-      const float* p1[kBatch];
+      // the taps' element offsets in this item's image, -1 for none: 32-bit,
+      // so that the loads in flight hold no 64-bit addresses
+      int o0[kBatch];
+      int o1[kBatch];
       float wq[kBatch];
 #pragma unroll
       for (int b = 0; b < kBatch; ++b) {
@@ -258,10 +274,12 @@ __global__ void __launch_bounds__(kThreads, 4) affine_warp_kernel(WarpArgs a) {
         const float j0 = floorf(q);
         const float j1 = __fadd_rn(j0, 1.0f);
         wq[b] = __fsub_rn(q, j0);
-        const float* col = a.src + u * a.s_x;
+        const long long col = u * a.s_x;
         const bool live = i < n_items;
-        p0[b] = live && in_range(j0, a.h) ? col + static_cast<long long>(j0) * a.s_y : nullptr;
-        p1[b] = live && in_range(j1, a.h) ? col + static_cast<long long>(j1) * a.s_y : nullptr;
+        o0[b] = live && in_range(j0, a.h)
+                    ? static_cast<int>(col + static_cast<long long>(j0) * a.s_y) : -1;
+        o1[b] = live && in_range(j1, a.h)
+                    ? static_cast<int>(col + static_cast<long long>(j1) * a.s_y) : -1;
       }
       if (kC > 0) {
         constexpr int kN = kC > 0 ? kC : 1;
@@ -270,8 +288,8 @@ __global__ void __launch_bounds__(kThreads, 4) affine_warp_kernel(WarpArgs a) {
         for (int b = 0; b < kBatch; ++b)
 #pragma unroll
           for (int c = 0; c < kN; ++c) {
-            v0[b][c] = p0[b] != nullptr ? p0[b][c * a.s_c] : 0.0f;
-            v1[b][c] = p1[b] != nullptr ? p1[b][c * a.s_c] : 0.0f;
+            v0[b][c] = o0[b] >= 0 ? a.src[o0[b] + c * a.s_c] : 0.0f;
+            v1[b][c] = o1[b] >= 0 ? a.src[o1[b] + c * a.s_c] : 0.0f;
           }
 #pragma unroll
         for (int b = 0; b < kBatch; ++b) {
@@ -286,8 +304,8 @@ __global__ void __launch_bounds__(kThreads, 4) affine_warp_kernel(WarpArgs a) {
           const int i = first + b * kThreads;
           if (i >= n_items) break;
           for (int c = 0; c < nc; ++c) {
-            const float v0 = p0[b] != nullptr ? p0[b][c * a.s_c] : 0.0f;
-            const float v1 = p1[b] != nullptr ? p1[b][c * a.s_c] : 0.0f;
+            const float v0 = o0[b] >= 0 ? a.src[o0[b] + c * a.s_c] : 0.0f;
+            const float v1 = o1[b] >= 0 ? a.src[o1[b] + c * a.s_c] : 0.0f;
             buf[i * nc + c] = lerp(v0, v1, wq[b]);
           }
         }
@@ -331,18 +349,24 @@ __global__ void __launch_bounds__(kThreads, 4) affine_warp_kernel(WarpArgs a) {
 
 }  // namespace
 
-// Warps the (C, h, w) image `src` into `out` (same extent) on `stream`.
-// Element strides (channel, row, column) address both, so any layout is
-// taken.  `hinv` is the 3x3 row-major inverse map on the device; `border`
-// the (C,) border on the device, or null for `border_value`;
-// `fallbacks` a device int the kernel adds one to when the warp takes the
-// gather.  Returns cudaGetLastError() after the launch.
+// Warps each of the `batch` (C, h, w) images of `src` into `out` (same
+// extent) on `stream`.  Element strides (item, channel, row, column) address
+// both, so any layout is taken; one item's elements must lie within 2^31 of
+// its first (stage 1 keeps 32-bit offsets).  `hinv` holds the items' 3x3 row-major
+// inverse maps on the device, one after the other; `border` the (C,) border
+// of item 0 on the device, `border_stride` elements before item 1's (0: one
+// border for all), or null for `border_value`; `fallbacks` a device int the
+// kernel adds one to for each item that takes the gather.  1 <= batch <=
+// 65535 (the grid's z extent), else cudaErrorInvalidValue and no launch.
+// Returns cudaGetLastError() after the launch.
 extern "C" int vstab_affine_warp(const float* src, float* out, const float* hinv,
                                  const float* border, float border_value, int* fallbacks,
-                                 long long s_c, long long s_y, long long s_x,
-                                 long long o_c, long long o_y, long long o_x,
+                                 long long s_b, long long s_c, long long s_y, long long s_x,
+                                 long long o_b, long long o_c, long long o_y, long long o_x,
+                                 long long border_stride, int batch,
                                  int c, int h, int w, int projective_fallback,
                                  void* stream) {
+  if (batch < 1 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
   WarpArgs a;
   a.src = src;
   a.out = out;
@@ -350,17 +374,20 @@ extern "C" int vstab_affine_warp(const float* src, float* out, const float* hinv
   a.border = border;
   a.border_value = border_value;
   a.fallbacks = fallbacks;
+  a.s_b = s_b;
   a.s_c = s_c;
   a.s_y = s_y;
   a.s_x = s_x;
+  a.o_b = o_b;
   a.o_c = o_c;
   a.o_y = o_y;
   a.o_x = o_x;
+  a.border_stride = border_stride;
   a.c = c;
   a.h = h;
   a.w = w;
   a.projective_fallback = projective_fallback;
-  const dim3 grid((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY);
+  const dim3 grid((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY, batch);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (c == 1) {
     affine_warp_kernel<1><<<grid, kThreads, 0, s>>>(a);

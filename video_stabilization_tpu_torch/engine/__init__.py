@@ -1,5 +1,5 @@
-"""The stabilization engine: carry, per-frame step, offline chunks, smoothing,
-modes."""
+"""The stabilization engine: carry, per-frame step, offline chunks (of one
+stream or of S), smoothing, modes."""
 
 from video_stabilization_tpu_torch.engine.checkpoint import (  # noqa: F401
     carry_from_numpy,
@@ -11,7 +11,9 @@ from video_stabilization_tpu_torch.engine.lock import (  # noqa: F401
     sift_lock,
 )
 from video_stabilization_tpu_torch.engine.offline import (  # noqa: F401
+    make_offline_batched_fn,
     make_offline_fn,
+    offline_batched_chunk_step,
     offline_chunk_step,
     stabilize_clip_offline,
 )
@@ -21,4 +23,9 @@ from video_stabilization_tpu_torch.engine.stabilizer import (  # noqa: F401
     frame_keys,
     stabilize_step,
 )
-from video_stabilization_tpu_torch.engine.state import EngineCarry, init_carry  # noqa: F401
+from video_stabilization_tpu_torch.engine.state import (  # noqa: F401
+    EngineCarry,
+    carry_stream,
+    init_carry,
+    map_carry,
+)

@@ -1,40 +1,46 @@
 """Offline chunked pipeline: K consecutive frames per call, the per-frame
-stages batched over the chunk.
+stages batched over the chunk, and over S streams.
 
 Port of ``video_stabilization_tpu/engine/offline.py`` (``offline_chunk_step``,
-``_offline_config``, ``make_offline_fn``, ``stabilize_clip_offline``).  The
-expensive stages of frame i depend only on frames i-1 and i, so a chunk runs
-them for all K frames at once:
+``_offline_config``, ``make_offline_fn``, ``make_offline_batched_fn``,
+``stabilize_clip_offline``).  The expensive stages of frame i depend only on
+frames i-1 and i, so a chunk runs them for all K frames at once; the JAX
+package vmaps the chunk over streams, the port writes the stream dimension
+out, so there is one chunk body, :func:`offline_batched_chunk_step`, over S
+streams of K frames each (``offline_chunk_step`` is its S = 1 case):
 
-  1. gray, pyramid and GFTT of the K frames as one batch;
-  2. dense LK of the K pairs (the carry's pyramid and corners seed pair 0),
-     then RANSAC and de-scale of the K pairs as one batch;
+  1. gray, pyramid and GFTT of the S·K frames as one batch;
+  2. dense LK of the S·K pairs (each stream's carry pyramid and corners
+     seed its pair 0) as one batch, then RANSAC and de-scale of the S·K
+     pairs as one batch;
   3. the short sequential chains as tensor ops over K: the K smoothing
      windows, the accumulated lock's masked prefix product (newest factor
      on the left) and the registration lock's sticky fallback;
-  4. the K output warps.
+  4. the S·K output warps as one batched warp.
 
-Dense LK, the registration lock (detection, matching, RANSAC, ECC) and the
-output warp stay per frame, in a Python loop over the chunk that reads
-nothing back: the warp kernel and those per-image ops have no batch
-dimension yet (ROADMAP Queue 2, K4).
+So the warp kernel launches four times for LK and once for the output per
+call, whatever S and K.  The registration lock (detection, matching,
+RANSAC, ECC) stays per frame, in a Python loop over the streams and then
+the chunk that reads nothing back.
 
 Semantics: K calls of :func:`~video_stabilization_tpu_torch.engine.stabilizer.stabilize_step`
-for any K up to the window W, with the same ``fold_in`` frame keys, the
-first-frame quirk, lock anchoring and sticky fallbacks.  Presentation frame j
-comes from the chunk itself when it is one of the chunk's frames, else from
-the ring as it was before the chunk's write.  (The JAX package reads all K
-from the ring after the write, so there a frame written later in the chunk
-overwrites an earlier presentation frame whenever K >= past_frames + 2;
-ROADMAP Queue 3.)
+per stream for any K up to the window W, with each stream's own ``fold_in``
+frame keys (of its own frame counter), the first-frame quirk, lock
+anchoring and sticky fallbacks.  Presentation frame j comes from the chunk
+itself when it is one of the chunk's frames, else from the ring as it was
+before the chunk's write.  (The JAX package reads all K from the ring after
+the write, so there a frame written later in the chunk overwrites an
+earlier presentation frame whenever K >= past_frames + 2; ROADMAP Queue 3.)
 
 The warps take the JAX offline path's arguments: LK's and ECC's without the
 projective fallback; the output warp without it in the bounded modes
 (GLOBAL_SMOOTHING, TRANSLATION_LOCK) and with ``warp_projective_fallback``
-in the others, which frame by frame is the JAX chunk-wide ``cond``.
+in the others, which frame by frame is the JAX chunk-wide ``cond``
+(``make_offline_batched_fn`` drops it in those too, as the JAX function
+does).
 
-``config.static_mode`` is required, and K must not exceed W (the frame ring
-is written once per chunk).
+``config.static_mode`` is required (the body branches on the host mode),
+and K must not exceed W (the frame ring is written once per chunk).
 """
 
 from __future__ import annotations
@@ -56,7 +62,7 @@ from video_stabilization_tpu_torch.engine.stabilizer import (
     frame_keys,
     stabilized_outputs,
 )
-from video_stabilization_tpu_torch.engine.state import EngineCarry
+from video_stabilization_tpu_torch.engine.state import EngineCarry, map_carry
 from video_stabilization_tpu_torch.ops.gftt import good_features_to_track
 from video_stabilization_tpu_torch.ops.image import bgr_to_gray, resize_bilinear
 from video_stabilization_tpu_torch.ops.lk import lk_track
@@ -64,38 +70,61 @@ from video_stabilization_tpu_torch.ops.pyramid import build_pyramid
 from video_stabilization_tpu_torch.ops.warp import _inv3x3
 from video_stabilization_tpu_torch.utils.stage_profile import stage
 
-# modes whose output correction is bounded by construction: their output
-# warp never takes the projective fallback (JAX offline.py _BOUNDED_MODES)
+# Modes whose output correction is bounded by construction, so the warp's
+# ~9-degree rotation envelope always holds: smoothing corrects only residual
+# shake around the window average, and translation lock cancels rotation
+# before warping.  Their output warp never takes the projective fallback
+# (JAX offline.py _BOUNDED_MODES, parallel/streams.py _BOUNDED_WARP_MODES).
+# The accumulated / rotation / ORB / SIFT locks track an absolute pose
+# offset that can grow without bound.
 BOUNDED_MODES = (StabilizationMode.GLOBAL_SMOOTHING, StabilizationMode.TRANSLATION_LOCK)
 REGISTRATION_MODES = (StabilizationMode.ORB_FULL_LOCK, StabilizationMode.SIFT_FULL_LOCK)
 
 
+def require_static_mode(config: StabilizerConfig, what: str) -> StabilizationMode:
+    """The pinned mode; raises without one: the port branches on a host
+    mode, and a batch of mixed modes has no counterpart of the JAX vmap's
+    all-branches select."""
+    if config.static_mode is None:
+        raise ValueError(
+            f"{what} requires config.static_mode (one pipeline per mode); use "
+            "dataclasses.replace(config, static_mode=int(mode))")
+    return StabilizationMode(int(config.static_mode))
+
+
 def _presentation_frames(ring: torch.Tensor, frames: torch.Tensor, pres_abs: torch.Tensor,
                          n0: torch.Tensor) -> torch.Tensor:
-    """(K, Hf, Wf, C) u8 presentation frames: frame ``pres_abs[j]`` from the
-    chunk ``frames`` (absolute indices ``n0 ..``) when it is there, else
-    from ``ring`` before this chunk's write (``pres_abs[j] > n0 - W``, so its
-    slot still holds it)."""
-    rel = pres_abs - n0
-    from_chunk = frames.index_select(0, rel.clamp(0, frames.shape[0] - 1).long())
-    from_ring = ring.index_select(0, torch.remainder(pres_abs, ring.shape[0]).long())
-    return torch.where((rel >= 0)[:, None, None, None], from_chunk, from_ring)
+    """(S, K, Hf, Wf, C) u8 presentation frames: frame ``pres_abs[s, j]`` of
+    stream s from the chunk ``frames`` (absolute indices ``n0[s] ..``) when
+    it is there, else from ``ring`` (S, W, ...) before this chunk's write
+    (``pres_abs[s, j] > n0[s] - W``, so its slot still holds it).  Flat
+    indices ``s·K + j`` and ``s·W + slot`` address the streams' frames."""
+    s_n, k = frames.shape[:2]
+    w = ring.shape[1]
+    streams = torch.arange(s_n, device=ring.device)[:, None]
+    rel = pres_abs - n0[:, None]
+    from_chunk = frames.reshape((s_n * k,) + frames.shape[2:]).index_select(
+        0, (streams * k + rel.clamp(0, k - 1)).reshape(-1).long())
+    from_ring = ring.reshape((s_n * w,) + ring.shape[2:]).index_select(
+        0, (streams * w + torch.remainder(pres_abs, w)).reshape(-1).long())
+    picked = torch.where((rel >= 0).reshape(-1)[:, None, None, None], from_chunk, from_ring)
+    return picked.reshape(frames.shape)
 
 
-def offline_chunk_step(
+def offline_batched_chunk_step(
     carry: EngineCarry,
     frames: torch.Tensor,
     config: StabilizerConfig,
+    *,
+    ecc_warp_fallback: bool = False,
 ) -> Tuple[EngineCarry, Tuple[torch.Tensor, torch.Tensor]]:
-    """Process K consecutive (K, Hf, Wf, C) uint8 frames on the carry's
-    device -> (carry', (outputs (K, Hf, Wf, C) u8, valid (K,))), the same as
-    K ``stabilize_step`` calls.  ``carry.frames`` is updated in place."""
-    if config.static_mode is None:
-        raise ValueError(
-            "offline pipeline requires config.static_mode (one pipeline per "
-            "mode); use dataclasses.replace(config, static_mode=int(mode))")
-    mode = StabilizationMode(int(config.static_mode))
-    k = frames.shape[0]
+    """Process K consecutive frames of each of S streams, (S, K, Hf, Wf, C)
+    uint8 on the carry's device, with a carry of S streams (every tensor
+    (S, ...)) -> (carry', (outputs (S, K, Hf, Wf, C) u8, valid (S, K))),
+    the same as K ``stabilize_step`` calls per stream.  ``carry.frames`` is
+    updated in place.  ``ecc_warp_fallback`` is ECC's ``warp_fallback``."""
+    mode = require_static_mode(config, "offline pipeline")
+    s_n, k = frames.shape[:2]
     w = config.total_window
     if k > w:
         raise ValueError(f"chunk size {k} exceeds temporal window {w}")
@@ -105,6 +134,8 @@ def offline_chunk_step(
     if frames.device != dev:
         raise ValueError(f"frames on {frames.device}, carry on {dev}: the offline step runs "
                          "on the carry's device; move the frames there")
+    if carry.frames.shape[0] != s_n:
+        raise ValueError(f"frames of {s_n} streams for a carry of {carry.frames.shape[0]}")
     f32 = dict(dtype=torch.float32, device=dev)
     future = config.future_frames
     wh, ww = config.working_size
@@ -112,41 +143,44 @@ def offline_chunk_step(
     scale_factor = torch.tensor(config.scale_factor).to(dev, non_blocking=True)
     eye = torch.eye(3, **f32)
     frames = frames.to(torch.uint8)
+    flat = frames.reshape((s_n * k,) + frames.shape[2:])
+
+    def per_stream(x):                  # (S·K, ...) -> (S, K, ...)
+        return x.reshape((s_n, k) + x.shape[1:])
+
+    def after_carry(prev, x):           # each stream's carry value, then its K-1 first
+        return torch.cat([prev[:, None], per_stream(x)[:, :-1]], 1).reshape(x.shape)
 
     n0 = carry.n
     idxs = torch.arange(k, dtype=torch.int32, device=dev)
-    ns = n0 + idxs
-    k_ransac, k_lock = frame_keys(carry.key, ns)                 # (K, 2) each
+    ns = n0[:, None] + idxs                                      # (S, K)
+    k_ransac, k_lock = frame_keys(carry.key[:, None, :], ns)     # (S, K, 2) each
 
-    # 1. gray, pyramid and GFTT of the K frames (resize before gray)
+    # 1. gray, pyramid and GFTT of the S·K frames (resize before gray)
     with stage("gray_pyramid"):
-        grays = bgr_to_gray(resize_bilinear(frames.float(), wh, ww))
+        grays = bgr_to_gray(resize_bilinear(flat.float(), wh, ww))
         pyrs = build_pyramid(grays, config.lk.pyramid_levels)
     with stage("gftt"):
         corners = good_features_to_track(grays, config.gftt)
 
-    # 2. LK of the K pairs, one pair at a time; RANSAC of the K pairs at once
-    pts_prev = torch.cat([carry.corners_prev[None], corners.points[:-1]])
-    msk_prev = torch.cat([carry.corners_mask[None], corners.mask[:-1]])
+    # 2. LK and RANSAC of the S·K pairs, each as one batch
+    pts_prev = after_carry(carry.corners_prev, corners.points)
     with stage("lk"):
-        tracked = []
-        for j in range(k):
-            pyr_a = carry.pyr_prev if j == 0 else tuple(p[j - 1] for p in pyrs)
-            tracked.append(lk_track(pyr_a, tuple(p[j] for p in pyrs), pts_prev[j],
-                                    msk_prev[j], config.lk))
+        tracked = lk_track([after_carry(a, b) for a, b in zip(carry.pyr_prev, pyrs)], pyrs,
+                           pts_prev, after_carry(carry.corners_mask, corners.mask), config.lk)
     with stage("fit"):
-        ransac, t_rigid = _fit_inter_frame(
-            pts_prev, torch.stack([t.points for t in tracked]),
-            torch.stack([t.status for t in tracked]), k_ransac, config, center)
+        ransac, t_rigid = _fit_inter_frame(pts_prev, tracked.points, tracked.status,
+                                           k_ransac.reshape(-1, 2), config, center)
     have_prev = ns >= 1
-    t_new = torch.where((have_prev & ransac.valid)[:, None, None], t_rigid, eye)
+    t_new = torch.where((have_prev & per_stream(ransac.valid))[..., None, None],
+                        per_stream(t_rigid), eye)
 
-    # 3. the window after step j is ext[j+1 : j+w]; ext[i] holds the
+    # 3. the window after step j is ext[:, j+1 : j+w]; ext[:, i] holds the
     # transform into frame i - (w-1) + n0.  The very first frame does not
     # push in the streaming step, but its slot here is identity and invalid,
     # which every consumer reads the same way.
-    ext = torch.cat([carry.transforms, t_new])
-    ext_v = torch.cat([carry.tvalid, have_prev])
+    ext = torch.cat([carry.transforms, t_new], 1)
+    ext_v = torch.cat([carry.tvalid, have_prev], 1)
     n_after = ns + 1
     length = n_after.clamp(max=w)
     num_tr = length - 1
@@ -156,70 +190,80 @@ def offline_chunk_step(
     with stage("smoothing"):
         win = (torch.arange(k, device=dev)[:, None] + 1
                + torch.arange(w - 1, device=dev)[None, :])
-        h_smooth = smoothing_homography(ext[win], ext_v[win], pres, num_tr,
+        h_smooth = smoothing_homography(ext[:, win], ext_v[:, win], pres, num_tr,
                                         config.reference_compat)
 
-    # 4. presentation frames, then the ring write
+    # 4. presentation frames, then the ring write (stream s, slot i at s·W + i)
     pres_frames = _presentation_frames(carry.frames, frames, pres_abs, n0)
-    carry.frames.index_copy_(0, torch.remainder(ns, w).long(), frames)
+    streams = torch.arange(s_n, device=dev)[:, None]
+    ring = carry.frames.view((s_n * w,) + carry.frames.shape[2:])
+    ring.index_copy_(0, (streams * w + torch.remainder(ns, w)).reshape(-1).long(), flat)
 
     # 5. lock transforms
     orb_ref, sift_ref, lock_prev_h = carry.orb_ref, carry.sift_ref, carry.lock_prev_h
-    lock_matches = torch.zeros(k, dtype=torch.int32, device=dev)
-    accum_h = eye
-    accum_active = torch.zeros((), dtype=torch.bool, device=dev)
+    lock_matches = torch.zeros((s_n, k), dtype=torch.int32, device=dev)
+    accum_h = eye.expand(s_n, 3, 3).clone()
+    accum_active = torch.zeros(s_n, dtype=torch.bool, device=dev)
     if mode in ACCUM_MODES:
         with stage("lock"):
-            h0 = torch.where(carry.accum_active, carry.accum_h, eye)
+            h0 = torch.where(carry.accum_active[:, None, None], carry.accum_h, eye)
             advanced = (n_after - 1 - future) >= 1
             # the anchor step itself never advances
-            adv = advanced & (carry.accum_active | (idxs >= 1))
-            t_pres = ext[(pres_abs - n0 + (w - 1)).clamp(0, w - 2 + k).long()]
-            m_seq = torch.where(adv[:, None, None], t_pres, eye)
-            accum_seq = torch.matmul(_prefix_products(m_seq, left=True), h0)
+            adv = advanced & (carry.accum_active[:, None] | (idxs >= 1))
+            t_pres = ext[streams, (pres_abs - n0[:, None] + (w - 1)).clamp(0, w - 2 + k).long()]
+            m_seq = torch.where(adv[..., None, None], t_pres, eye)
+            accum_seq = torch.matmul(_prefix_products(m_seq, left=True), h0[:, None])
             h_lock = _inv3x3(accum_seq)
-            accum_h = accum_seq[-1]
-            accum_active = torch.ones((), dtype=torch.bool, device=dev)
+            accum_h = accum_seq[:, -1]
+            accum_active = torch.ones(s_n, dtype=torch.bool, device=dev)
     elif mode in REGISTRATION_MODES:
         use_orb = mode == StabilizationMode.ORB_FULL_LOCK
-        ref = orb_ref if use_orb else sift_ref
+        refs = orb_ref if use_orb else sift_ref
         with stage("lock"):
             with stage("lock_detect"):
-                found = [detect_features(pres_frames[j].float(), config, use_orb)
-                         for j in range(k)]
-            # the reference is captured on the chunk's first frame if unset;
-            # the sticky fallback runs frame to frame
+                found = [detect_features(f.float(), config, use_orb)
+                         for f in pres_frames.reshape(flat.shape)]
+            # each stream's reference is captured on its first frame if
+            # unset; the sticky fallback runs frame to frame
             with stage("lock_register"):
-                hs, matches = [], []
-                for j, (feats, proc, c) in enumerate(found):
-                    res = _registration_lock(feats.points, feats.desc, feats.mask, proc, ref,
-                                             lock_prev_h, k_lock[j], config, c, use_orb,
-                                             ecc_warp_fallback=False)
-                    ref, lock_prev_h = res.ref, res.prev_h
-                    hs.append(res.h_lock)
-                    matches.append(res.n_matches)
-        h_lock = torch.stack(hs)
-        lock_matches = torch.stack(matches)
+                hs, matches, new_refs, new_prev = [], [], [], []
+                for s in range(s_n):
+                    ref = map_carry(lambda x: x[s], refs)
+                    prev_h = lock_prev_h[s]
+                    for j in range(k):
+                        feats, proc, c = found[s * k + j]
+                        res = _registration_lock(feats.points, feats.desc, feats.mask, proc,
+                                                 ref, prev_h, k_lock[s, j], config, c, use_orb,
+                                                 ecc_warp_fallback=ecc_warp_fallback)
+                        ref, prev_h = res.ref, res.prev_h
+                        hs.append(res.h_lock)
+                        matches.append(res.n_matches)
+                    new_refs.append(ref)
+                    new_prev.append(prev_h)
+        h_lock = torch.stack(hs).reshape(s_n, k, 3, 3)
+        lock_matches = torch.stack(matches).reshape(s_n, k)
+        lock_prev_h = torch.stack(new_prev)
+        refs = map_carry(lambda *xs: torch.stack(xs), *new_refs)
         if use_orb:
-            orb_ref = ref
+            orb_ref = refs
         else:
-            sift_ref = ref
+            sift_ref = refs
     else:   # GLOBAL_SMOOTHING: the lock is cleared every step
-        h_lock = eye.expand(k, 3, 3)
+        h_lock = eye.expand(s_n, k, 3, 3)
 
-    # 6. rotation split, mode select, rescale and one warp per frame
-    h_stab, outputs, n_viol = stabilized_outputs(
+    # 6. rotation split, mode select, rescale and one batched warp
+    h_stab, outputs, outside = stabilized_outputs(
         mode, h_smooth, h_lock, pres_frames, frames, ns == 0, center, scale_factor,
         config.warp_projective_fallback and mode not in BOUNDED_MODES)
-    out_valid = torch.ones(k, dtype=torch.bool, device=dev)
+    out_valid = torch.ones((s_n, k), dtype=torch.bool, device=dev)
 
     new_carry = EngineCarry(
         frames=carry.frames,
-        transforms=ext[k:],
-        tvalid=ext_v[k:],
-        pyr_prev=tuple(p[-1] for p in pyrs),
-        corners_prev=corners.points[-1],
-        corners_mask=corners.mask[-1],
+        transforms=ext[:, k:],
+        tvalid=ext_v[:, k:],
+        pyr_prev=tuple(per_stream(p)[:, -1] for p in pyrs),
+        corners_prev=per_stream(corners.points)[:, -1],
+        corners_mask=per_stream(corners.mask)[:, -1],
         n=n0 + k,
         mode=carry.mode,
         accum_h=accum_h,
@@ -227,13 +271,28 @@ def offline_chunk_step(
         orb_ref=orb_ref,
         sift_ref=sift_ref,
         lock_prev_h=lock_prev_h,
-        last_h=h_stab[-1],
-        last_inliers=ransac.num_inliers[-1],
-        last_lock_matches=lock_matches[-1],
-        envelope_violations=carry.envelope_violations + n_viol,
+        last_h=h_stab[:, -1],
+        last_inliers=per_stream(ransac.num_inliers)[:, -1],
+        last_lock_matches=lock_matches[:, -1],
+        envelope_violations=carry.envelope_violations + outside.sum(-1).to(torch.int32),
         key=carry.key,
     )
     return new_carry, (outputs, out_valid)
+
+
+def offline_chunk_step(
+    carry: EngineCarry,
+    frames: torch.Tensor,
+    config: StabilizerConfig,
+) -> Tuple[EngineCarry, Tuple[torch.Tensor, torch.Tensor]]:
+    """Process K consecutive (K, Hf, Wf, C) uint8 frames on the carry's
+    device -> (carry', (outputs (K, Hf, Wf, C) u8, valid (K,))), the same as
+    K ``stabilize_step`` calls: :func:`offline_batched_chunk_step` on one
+    stream.  ``carry.frames`` is updated in place."""
+    require_static_mode(config, "offline pipeline")
+    carry, (outputs, valid) = offline_batched_chunk_step(
+        map_carry(lambda x: x[None], carry), frames[None], config)
+    return map_carry(lambda x: x[0], carry), (outputs[0], valid[0])
 
 
 def _offline_config(config: StabilizerConfig) -> StabilizerConfig:
@@ -248,6 +307,21 @@ def make_offline_fn(config: StabilizerConfig) -> Callable:
     """(carry, frames (K, Hf, Wf, C)) -> (carry, (outputs, valid)) for any
     K up to the window; one callable per config."""
     return functools.partial(offline_chunk_step, config=_offline_config(config))
+
+
+@functools.lru_cache(maxsize=32)
+def make_offline_batched_fn(config: StabilizerConfig) -> Callable:
+    """(carry of S streams, frames (S, K, Hf, Wf, C)) -> (carry, (outputs
+    (S, K, Hf, Wf, C), valid (S, K))): the chunk over streams, with the JAX
+    function's warp arguments (``offline.py::make_offline_batched_fn``): LK
+    and ECC without the projective fallback, and the output warp without it
+    in every mode (the bounded modes never take it, the others drop it
+    here).  Requires ``config.static_mode``."""
+    require_static_mode(config, "make_offline_batched_fn")
+    cfg = _offline_config(config)
+    if int(cfg.static_mode) not in BOUNDED_MODES:
+        cfg = dataclasses.replace(cfg, warp_projective_fallback=False)
+    return functools.partial(offline_batched_chunk_step, config=cfg)
 
 
 def stabilize_clip_offline(

@@ -105,12 +105,13 @@ def frame_keys(base_key: torch.Tensor, n: torch.Tensor) -> Tuple[torch.Tensor, t
 def stabilized_outputs(mode: int, h_smooth, h_lock, pres_frames, frames, is_first, center,
                        scale_factor, projective_fallback: bool):
     """The step's tail over any leading dims (none for the streaming step,
-    K for an offline chunk): rotation split of ``h_lock``, the mode's
-    stabilizing homography, its rescale to full resolution, and one warp of
-    each (..., Hf, Wf, C) presentation frame; where ``is_first``, the new
-    frame in ``frames`` passes through unwarped.  Returns (h_stab
-    (..., 3, 3), outputs (..., Hf, Wf, C) u8, the number of ``h_stab``
-    outside the warp's envelope as an int32 tensor)."""
+    (S, K) for a chunk of S streams): rotation split of ``h_lock``, the
+    mode's stabilizing homography, its rescale to full resolution, and one
+    batched warp of all (..., Hf, Wf, C) presentation frames, each with the
+    border 0.5 · its mean colour; where ``is_first``, the new frame in
+    ``frames`` passes through unwarped.  Returns (h_stab (..., 3, 3),
+    outputs (..., Hf, Wf, C) u8, (...) bool: ``h_stab`` outside the warp's
+    envelope)."""
     eye = torch.eye(3, dtype=torch.float32, device=h_lock.device)
     with stage("rotation_split"):
         lock_params, lock_ok = decompose_homography(h_lock, center)
@@ -128,18 +129,16 @@ def stabilized_outputs(mode: int, h_smooth, h_lock, pres_frames, frames, is_firs
     # the affine block is scale-invariant: only the translation rescales
     h_scaled = h_stab.clone()
     h_scaled[..., 0:2, 2] = h_stab[..., 0:2, 2] / scale_factor
-    n_viol = (~affine_envelope_ok(h_scaled)).sum().to(torch.int32)
+    outside = ~affine_envelope_ok(h_scaled)
     with stage("warp"):
-        warped = []
-        for h, pres in zip(h_scaled.reshape(-1, 3, 3),
-                           pres_frames.reshape((-1,) + pres_frames.shape[-3:])):
-            pres = pres.float()
-            out = warp_affine(pres, h, border_value=0.5 * pres.mean(dim=(0, 1)),
-                              projective_fallback=projective_fallback)
-            warped.append(torch.clamp(torch.round(out), 0, 255).to(torch.uint8))
-        warped_u8 = torch.stack(warped).reshape(pres_frames.shape)
-    outputs = torch.where(is_first[..., None, None, None], frames.to(torch.uint8), warped_u8)
-    return h_stab, outputs, n_viol
+        pres = pres_frames.reshape((-1,) + pres_frames.shape[-3:]).float()
+        out = warp_affine(pres, h_scaled.reshape(-1, 3, 3),
+                          border_value=0.5 * pres.mean(dim=(1, 2)),
+                          projective_fallback=projective_fallback)
+        warped_u8 = torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
+    outputs = torch.where(is_first[..., None, None, None], frames.to(torch.uint8),
+                          warped_u8.reshape(pres_frames.shape))
+    return h_stab, outputs, outside
 
 
 def stabilize_step(
@@ -243,10 +242,10 @@ def stabilize_step(
         h_lock = _inv3x3(accum_h)
 
     # 7-9. rotation split, mode switch, rescale and warp
-    h_stabilize, output, n_viol = stabilized_outputs(
+    h_stabilize, output, outside = stabilized_outputs(
         mode, h_smooth, h_lock, pres_frame, frame, is_first, center, scale_factor,
         config.warp_projective_fallback)
-    env_viol = carry.envelope_violations + n_viol
+    env_viol = carry.envelope_violations + outside.to(torch.int32)
     out_valid = torch.ones((), dtype=torch.bool, device=dev)
 
     # 10. features for the next frame

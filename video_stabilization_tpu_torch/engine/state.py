@@ -8,12 +8,16 @@ its two 32-bit words in an int64 (2,) tensor (``utils/prng.py``).
 Unlike the JAX carry, the port's carry is mutable: ``stabilize_step`` writes
 the new frame into the ``frames`` ring in place rather than copying a ring
 of full-resolution frames every step.
+
+A carry of S streams (``parallel/streams.py``) has a leading (S,) on every
+tensor; :func:`map_carry` maps a function over the tensors of one or more
+carries (or of their parts), as ``jax.tree.map`` does for the JAX carry.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Tuple
+from dataclasses import dataclass, fields
+from typing import Callable, Tuple
 
 import torch
 
@@ -101,3 +105,21 @@ def init_carry(config: StabilizerConfig, mode: int, key_words: torch.Tensor,
         envelope_violations=i32(0),
         key=torch.as_tensor(key_words, dtype=torch.int64).to(device),
     )
+
+
+def map_carry(fn: Callable, *carries):
+    """The carry (or ``RegistrationRef``, or pyramid tuple) whose every
+    tensor is ``fn`` of the corresponding tensors of ``carries``."""
+    first = carries[0]
+    if isinstance(first, torch.Tensor):
+        return fn(*carries)
+    if isinstance(first, tuple):
+        return tuple(map_carry(fn, *parts) for parts in zip(*carries))
+    return type(first)(**{f.name: map_carry(fn, *(getattr(c, f.name) for c in carries))
+                          for f in fields(first)})
+
+
+def carry_stream(carry, s: int):
+    """Stream ``s`` of a batched carry as a carry of its own: a copy, so a
+    step on it leaves the batched carry (and its frame ring) untouched."""
+    return map_carry(lambda x: x[s].clone(), carry)

@@ -18,8 +18,10 @@ kernel of ``csrc/affine_warp.cu``: it derives both passes' parameters and
 the envelope branch on the device, fuses the passes through shared memory,
 reads and writes the (H, W, C) layout in place, and reads nothing back to
 the host; a warp outside the envelope adds one to :func:`fallback_counter`.
-On a CPU tensor it is the plain version :func:`warp_affine_plain`, built
-from :func:`resample_plain`, which decides the branch on the host.
+A batch of images, each with its own transform and border, is one launch
+too (``h`` of shape (B, 3, 3)).  On a CPU tensor it is the plain version
+:func:`warp_affine_plain`, built from :func:`resample_plain`, which decides
+each warp's branch on the host.
 """
 
 from __future__ import annotations
@@ -34,12 +36,15 @@ from video_stabilization_tpu_torch.utils.cuda_build import load_kernel
 # Envelope of the JAX package's full Pallas copy budget (pallas_warp.COPIES):
 # |alpha-1|·8 + |beta|·128 + 3 <= COPIES for both passes, ~9° of rotation.
 COPIES = 26
+# items of one launch: the grid's z extent
+MAX_BATCH = 65535
 
-# Launches of the CUDA kernel (one per warp) and plain-version calls that
-# took the projective gather outside the envelope.  Plain integers: a caller
-# resets them and reads them around the run it wants to account for.  The
-# CUDA warps outside the envelope are counted on the device
-# (:func:`fallback_counter`), so that counting them reads nothing back.
+# Launches of the CUDA kernel (one per warp or batch of warps) and
+# plain-version warps that took the projective gather outside the envelope.
+# Plain integers: a caller resets them and reads them around the run it
+# wants to account for.  The CUDA warps outside the envelope are counted on
+# the device (:func:`fallback_counter`), so that counting them reads nothing
+# back.
 launches = 0
 gather_fallbacks = 0
 
@@ -53,7 +58,7 @@ def _kernel_lib():
         lib = load_kernel("affine_warp")
         fn = lib.vstab_affine_warp
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_void_p]
-                       + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                       + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -147,15 +152,9 @@ def affine_envelope_ok(h: torch.Tensor) -> torch.Tensor:
     return _envelope_ok_inv(_inv3x3(h.float()))
 
 
-def warp_affine_plain(
-    src: torch.Tensor,
-    h: torch.Tensor,
-    border_value: torch.Tensor | float = 0.0,
-    *,
-    projective_fallback: bool = True,
-) -> torch.Tensor:
-    """Plain PyTorch version of :func:`warp_affine`, on any device.  The
-    branch is chosen on the host (one read of the envelope predicate)."""
+def _warp_one_plain(src: torch.Tensor, h: torch.Tensor, border_value,
+                    projective_fallback: bool) -> torch.Tensor:
+    """The plain version on one (H, W) or (H, W, C) image."""
     src = src.float()
     has_c = src.dim() == 3
     planes = (src.permute(2, 0, 1) if has_c else src[None]).contiguous()
@@ -181,6 +180,54 @@ def warp_affine_plain(
     return out.permute(1, 2, 0) if has_c else out[0]
 
 
+def _batch_size(src: torch.Tensor, h: torch.Tensor) -> int | None:
+    """B when ``h`` is a (B, 3, 3) batch of transforms, None for one (3, 3)
+    transform; raises when ``src`` does not fit."""
+    if h.dim() == 3 and h.shape[1:] == (3, 3):
+        b = h.shape[0]
+        if src.dim() not in (3, 4) or src.shape[0] != b:
+            raise ValueError(f"warp_affine: a batch of {b} transforms takes src (B, H, W) or "
+                             f"(B, H, W, C) with B = {b}, got {tuple(src.shape)}")
+        return b
+    if tuple(h.shape) != (3, 3):
+        raise ValueError(f"warp_affine: h must be (3, 3) or (B, 3, 3), got {tuple(h.shape)}")
+    if src.dim() not in (2, 3):
+        raise ValueError(f"warp_affine: src must be (H, W) or (H, W, C), got "
+                         f"{tuple(src.shape)}")
+    return None
+
+
+def _per_item_border(border_value, b: int, c: int):
+    """An item's border is ``border_value`` (a number or (C,)) or its row
+    of a (B, C) tensor."""
+    if isinstance(border_value, torch.Tensor) and border_value.dim() == 2:
+        if tuple(border_value.shape) != (b, c):
+            raise ValueError(f"warp_affine: a per-item border must be ({b}, {c}), got "
+                             f"{tuple(border_value.shape)}")
+        return True
+    return False
+
+
+def warp_affine_plain(
+    src: torch.Tensor,
+    h: torch.Tensor,
+    border_value: torch.Tensor | float = 0.0,
+    *,
+    projective_fallback: bool = True,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`warp_affine`, on any device.  Each
+    warp's branch is chosen on the host (one read of its envelope
+    predicate); a batch is its items' warps, one after the other."""
+    b = _batch_size(src, h)
+    if b is None:
+        return _warp_one_plain(src, h, border_value, projective_fallback)
+    c = src.shape[3] if src.dim() == 4 else 1
+    per_item = _per_item_border(border_value, b, c)
+    return torch.stack([
+        _warp_one_plain(src[i], h[i], border_value[i] if per_item else border_value,
+                        projective_fallback) for i in range(b)])
+
+
 def warp_affine(
     src: torch.Tensor,
     h: torch.Tensor,
@@ -192,54 +239,73 @@ def warp_affine(
     (src->dst), bilinear, constant border; the projective row of ``h`` is
     ignored by the 2-pass path.  Returns a tensor of ``src``'s shape.
 
+    A batch: ``h`` (B, 3, 3) warps each item of ``src`` (B, H, W) or (B, H,
+    W, C) by its own transform, with ``border_value`` a number, (C,) or
+    (B, C); ``h``'s shape tells a batch of one-channel images from one
+    (H, W, C) image.
+
     ``projective_fallback`` takes the projective gather outside the
     envelope; without it the 2-pass resample always runs.  A CPU tensor goes
-    to :func:`warp_affine_plain`; a CUDA tensor to one launch of the kernel,
-    which raises rather than falls back if it cannot run."""
+    to :func:`warp_affine_plain`; a CUDA tensor to one launch of the kernel
+    for the whole batch, which raises rather than falls back if it cannot
+    run."""
     if src.device.type == "cpu":
         return warp_affine_plain(src, h, border_value,
                                  projective_fallback=projective_fallback)
     if src.device.type != "cuda":
         raise ValueError(f"warp_affine: unsupported device {src.device}")
-    if src.dim() not in (2, 3):
-        raise ValueError(f"warp_affine: src must be (H, W) or (H, W, C), got "
-                         f"{tuple(src.shape)}")
-    if tuple(h.shape) != (3, 3) or h.device != src.device:
-        raise ValueError(f"warp_affine: h must be a (3, 3) tensor on {src.device}, got "
-                         f"{tuple(h.shape)} on {h.device}")
+    b = _batch_size(src, h)
+    if h.device != src.device:
+        raise ValueError(f"warp_affine: h must be on {src.device}, got {h.device}")
+    if b is not None and b > MAX_BATCH:
+        raise ValueError(f"warp_affine: a batch of {b} exceeds the kernel's {MAX_BATCH}")
     src = src.float()
-    c = src.shape[2] if src.dim() == 3 else 1
-    border, border_scalar = None, 0.0
+    items = src if b is not None else src[None]
+    # the kernel addresses an item's elements by 32-bit offsets
+    extent = sum((n - 1) * st for n, st in zip(items.shape[1:], items.stride()[1:]))
+    if extent >= 2 ** 31:
+        raise ValueError(f"warp_affine: an image spans {extent + 1} elements of memory, "
+                         "more than the kernel's 2^31")
+    c = items.shape[3] if items.dim() == 4 else 1
+    border, border_stride, border_scalar = None, 0, 0.0
     if isinstance(border_value, torch.Tensor):
-        border = border_value.to(device=src.device, dtype=torch.float32).expand(c).contiguous()
+        border = border_value.to(device=src.device, dtype=torch.float32)
+        if b is not None and _per_item_border(border, b, c):
+            border, border_stride = border.contiguous(), c
+        else:
+            border = border.expand(c).contiguous()
     else:   # passed by value: no fill kernel
         border_scalar = float(border_value)
-    return _launch(src, _inv3x3(h.float()).contiguous(), border, border_scalar,
-                   projective_fallback)
+    hinv = _inv3x3(h.float()).reshape(-1, 3, 3).contiguous()
+    out = _launch(items, hinv, border, border_stride, border_scalar, projective_fallback)
+    return out if b is not None else out[0]
 
 
 def _launch(src: torch.Tensor, hinv: torch.Tensor, border: torch.Tensor | None,
-            border_scalar: float, projective_fallback: bool) -> torch.Tensor:
-    """One launch of the kernel on the float32 CUDA image ``src`` with the
-    contiguous (3, 3) inverse map ``hinv`` and the (C,) ``border`` (or, if
-    None, ``border_scalar``); returns the contiguous output."""
+            border_stride: int, border_scalar: float,
+            projective_fallback: bool) -> torch.Tensor:
+    """One launch of the kernel on the float32 CUDA batch ``src`` (B, H, W)
+    or (B, H, W, C) with the contiguous (B, 3, 3) inverse maps ``hinv`` and
+    the border: ``border`` holds item 0's (C,) values and each next item's
+    ``border_stride`` elements on (0: one border for all), or, if None,
+    ``border_scalar``.  Returns the contiguous output."""
     dev = src.device
-    hh, ww = src.shape[0], src.shape[1]
+    bsz, hh, ww = src.shape[0], src.shape[1], src.shape[2]
     out = torch.empty(src.shape, dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    # element strides (channel, row, column); a 2-d image is one channel
-    c = src.shape[2] if src.dim() == 3 else 1
-    s_y, s_x = src.stride(0), src.stride(1)
-    s_c = src.stride(2) if src.dim() == 3 else 0
-    o_y, o_x = out.stride(0), out.stride(1)
-    o_c = out.stride(2) if out.dim() == 3 else 0
+    # element strides (item, channel, row, column); a 3-d batch is one channel
+    c = src.shape[3] if src.dim() == 4 else 1
+    s_b, s_y, s_x = src.stride(0), src.stride(1), src.stride(2)
+    s_c = src.stride(3) if src.dim() == 4 else 0
+    o_b, o_y, o_x = out.stride(0), out.stride(1), out.stride(2)
+    o_c = out.stride(3) if out.dim() == 4 else 0
     fn = _kernel_lib().vstab_affine_warp
     with torch.cuda.device(dev):
         err = fn(src.data_ptr(), out.data_ptr(), hinv.data_ptr(),
                  border.data_ptr() if border is not None else None, border_scalar,
-                 fallback_counter(dev).data_ptr(), s_c, s_y, s_x, o_c, o_y, o_x,
-                 c, hh, ww, int(projective_fallback),
+                 fallback_counter(dev).data_ptr(), s_b, s_c, s_y, s_x, o_b, o_c, o_y, o_x,
+                 border_stride, bsz, c, hh, ww, int(projective_fallback),
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"affine_warp launch failed: CUDA error {err}")

@@ -17,15 +17,16 @@ from video_stabilization_tpu_torch.config import LKConfig
 
 @dataclass
 class LKResult:
-    points: torch.Tensor   # (N, 2) f32 tracked locations
-    status: torch.Tensor   # (N,) bool
-    error: torch.Tensor    # (N,) f32 mean |residual| over the window
+    points: torch.Tensor   # (..., N, 2) f32 tracked locations
+    status: torch.Tensor   # (..., N) bool
+    error: torch.Tensor    # (..., N) f32 mean |residual| over the window
 
 
 def lk_track(pyr_prev: Sequence[torch.Tensor], pyr_next: Sequence[torch.Tensor],
              points: torch.Tensor, mask: torch.Tensor,
              config: LKConfig = LKConfig()) -> LKResult:
-    """Track (N, 2) level-0 ``points`` from ``pyr_prev`` to ``pyr_next``."""
+    """Track (N, 2) level-0 ``points`` from ``pyr_prev`` to ``pyr_next``, or
+    a batch of pairs: levels (B, h, w), points (B, N, 2)."""
     if config.method != "dense":
         raise NotImplementedError(
             f"lk.method={config.method!r} is not ported yet "

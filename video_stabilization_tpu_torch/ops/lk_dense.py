@@ -55,16 +55,16 @@ def _box_same(x: torch.Tensor, win: int) -> torch.Tensor:
 def _dense_residual_flow(img_i: torch.Tensor, img_j: torch.Tensor, srange: int,
                          win: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense integer + parabola flow minimizing the win x win SSD of
-    ``img_j`` shifted against ``img_i`` -> (flow (H, W, 2) as (dx, dy),
-    interior (H, W) bool)."""
-    h, w = img_i.shape
+    ``img_j`` shifted against ``img_i``, both (..., H, W) -> (flow (..., H,
+    W, 2) as (dx, dy), interior (..., H, W) bool)."""
+    h, w = img_i.shape[-2:]
     side = 2 * srange + 1
     jp = torch.nn.functional.pad(img_j, (srange, srange, srange, srange))
-    shifted = torch.stack([jp[sy:sy + h, sx:sx + w]
-                           for sy in range(side) for sx in range(side)])
-    surf = _box_same(torch.square(shifted - img_i[None]), win)
+    shifted = torch.stack([jp[..., sy:sy + h, sx:sx + w]
+                           for sy in range(side) for sx in range(side)], -3)
+    surf = _box_same(torch.square(shifted - img_i[..., None, :, :]), win)
 
-    amin = torch.argmin(surf, 0)                                 # first minimum
+    amin = torch.argmin(surf, -3)                                # first minimum
     ay = amin // side
     ax = amin % side
     ayc = ay.clamp(1, side - 2)
@@ -72,7 +72,7 @@ def _dense_residual_flow(img_i: torch.Tensor, img_j: torch.Tensor, srange: int,
 
     def pick(dy, dx):
         idx = (ayc + dy) * side + (axc + dx)
-        return torch.gather(surf, 0, idx[None])[0]
+        return torch.gather(surf, -3, idx[..., None, :, :])[..., 0, :, :]
 
     c0 = pick(0, 0)
     cxm, cxp = pick(0, -1), pick(0, 1)
@@ -107,14 +107,16 @@ def _min_eig_dense(ix: torch.Tensor, iy: torch.Tensor, win: int) -> torch.Tensor
 
 
 def _apply_h(h: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """Affine 3x3 applied to (..., 2) points (no projective divide)."""
-    return pts @ h[:2, :2].T + h[:2, 2]
+    """Affine (..., 3, 3) applied to (..., N, 2) points (no projective
+    divide)."""
+    return pts @ h[..., :2, :2].mT + h[..., None, :2, 2]
 
 
 def _scale_h(h: torch.Tensor, s: float) -> torch.Tensor:
-    """Level-0 similarity -> level with coordinates scaled by 1/s."""
+    """Level-0 similarities (..., 3, 3) -> level with coordinates scaled by
+    1/s."""
     out = h.clone()
-    out[:2, 2] = h[:2, 2] / s
+    out[..., :2, 2] = h[..., :2, 2] / s
     return out
 
 
@@ -124,9 +126,11 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
 
 def _grid_fit(h_cur, flow, interior, min_eig, scale: float, min_eig_threshold: float,
               resid_px: float, vote_range: int = 9) -> torch.Tensor:
-    """IRLS similarity refit of a dense residual flow on a regular grid,
-    in level-0 coordinates; returns the updated similarity."""
-    hgt, wid = flow.shape[:2]
+    """IRLS similarity refit of a dense residual flow (..., H, W, 2) on a
+    regular grid, in level-0 coordinates; returns the updated similarities
+    (..., 3, 3)."""
+    hgt, wid = flow.shape[-3:-1]
+    lead = flow.shape[:-3]
     dev = flow.device
     stride = max(4, min(hgt, wid) // 22)
     off = stride // 2
@@ -135,47 +139,52 @@ def _grid_fit(h_cur, flow, interior, min_eig, scale: float, min_eig_threshold: f
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     src_l = torch.stack([gx.reshape(-1), gy.reshape(-1)], -1)
 
+    def grid(x):
+        return x[..., off::stride, off::stride].reshape(lead + (-1,))
+
     margin = 10.0
     in_core = ((src_l[:, 0] >= margin) & (src_l[:, 0] < wid - margin)
                & (src_l[:, 1] >= margin) & (src_l[:, 1] < hgt - margin))
-    f = flow[off::stride, off::stride].reshape(-1, 2)
-    w0 = (interior[off::stride, off::stride].reshape(-1) & in_core
-          & (min_eig[off::stride, off::stride].reshape(-1) > min_eig_threshold))
+    f = flow[..., off::stride, off::stride, :].reshape(lead + (-1, 2))
+    w0 = grid(interior) & in_core & (grid(min_eig) > min_eig_threshold)
 
     # plurality flow by unit-width histogram votes, then a gate around it
     wf = w0.float()
     bins = torch.arange(-vote_range, vote_range + 1, dtype=torch.float32, device=dev)
-    votes = torch.sum(wf[None, :, None] * ((f[None] - bins[:, None, None]).abs() < 1.0), 1)
-    med = bins[torch.argmax(votes, 0)]                           # first maximum
+    votes = torch.sum(wf[..., None, :, None]
+                      * ((f[..., None, :, :] - bins[:, None, None]).abs() < 1.0), -2)
+    med = bins[torch.argmax(votes, -2)]                          # first maximum
     gate = torch.clamp(0.25 * _norm(med), min=1.8)
-    w_med = (w0 & (_norm(f - med) < gate)).float()
+    w_med = (w0 & (_norm(f - med[..., None, :]) < gate[..., None])).float()
 
     dst_l = _apply_h(_scale_h(h_cur, scale), src_l + f)
-    src0 = src_l * scale
+    src0 = (src_l * scale).expand(dst_l.shape)
     dst0 = dst_l * scale
     h1, ok1 = fit_similarity_masked(src0, dst0, w_med)
-    h1 = torch.where(ok1, h1, h_cur)
+    h1 = torch.where(ok1[..., None, None], h1, h_cur)
     r = _norm(_apply_h(h1, src0) - dst0)
     w1 = w_med * (r < resid_px * scale).float()
     h2, ok2 = fit_similarity_masked(src0, dst0, w1)
-    return torch.where(ok2, h2, h1)
+    return torch.where(ok2[..., None, None], h2, h1)
 
 
 def _sample_maps(maps: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """Bilinear sample of (K, H, W) maps at (N, 2) points -> (K, N)."""
-    k, h, w = maps.shape
-    flat = maps.reshape(k, h * w)
-    x = pts[:, 0].clamp(0.0, w - 1.001)
-    y = pts[:, 1].clamp(0.0, h - 1.001)
+    """Bilinear sample of (..., K, H, W) maps at (..., N, 2) points ->
+    (..., K, N)."""
+    k, h, w = maps.shape[-3:]
+    flat = maps.reshape(maps.shape[:-2] + (h * w,))
+    x = pts[..., 0].clamp(0.0, w - 1.001)
+    y = pts[..., 1].clamp(0.0, h - 1.001)
     x0 = torch.floor(x)
     y0 = torch.floor(y)
-    fx = (x - x0)[None]
-    fy = (y - y0)[None]
+    fx = (x - x0)[..., None, :]
+    fy = (y - y0)[..., None, :]
     xi = x0.long()
     yi = y0.long()
 
     def tap(dy, dx):
-        return flat[:, (yi + dy) * w + (xi + dx)]
+        idx = ((yi + dy) * w + (xi + dx))[..., None, :]
+        return torch.gather(flat, -1, idx.expand(idx.shape[:-2] + (k, idx.shape[-1])))
 
     return (tap(0, 0) * (1 - fx) * (1 - fy) + tap(0, 1) * fx * (1 - fy)
             + tap(1, 0) * (1 - fx) * fy + tap(1, 1) * fx * fy)
@@ -193,24 +202,34 @@ def lk_track_dense(pyr_prev: Sequence[torch.Tensor], pyr_next: Sequence[torch.Te
                    points: torch.Tensor, mask: torch.Tensor,
                    config: LKConfig = LKConfig()):
     """Track (N, 2) level-0 ``points`` from ``pyr_prev`` to ``pyr_next``;
-    returns an ``LKResult``."""
+    returns an ``LKResult``.
+
+    A batch of B pairs: levels (B, h_l, w_l), ``points`` (B, N, 2) and
+    ``mask`` (B, N) give a result with the leading B; each of the four
+    warps is then one ``warp_affine`` of the whole batch.  One pair is the
+    batch of one."""
     from video_stabilization_tpu_torch.ops.lk import LKResult
 
     if config.corner_polish_iters > 0:
         raise NotImplementedError(
             "lk.corner_polish_iters > 0 is not ported yet (ROADMAP Queue 1 item 14)")
+    if pyr_prev[0].dim() == 2:
+        res = lk_track_dense([p[None] for p in pyr_prev], [p[None] for p in pyr_next],
+                             points[None], mask[None], config)
+        return LKResult(points=res.points[0], status=res.status[0], error=res.error[0])
     win = config.window_size
     thr = config.min_eig_threshold
     n_levels = len(pyr_prev) - 1
     points = points.float()
     valid = mask.bool()
-    h0, w0 = pyr_prev[0].shape
+    h0, w0 = pyr_prev[0].shape[-2:]
     dev = points.device
-    t_cur = torch.eye(3, dtype=torch.float32, device=dev)
+    t_cur = torch.eye(3, dtype=torch.float32, device=dev).expand(
+        points.shape[:-2] + (3, 3))
 
     # coarse dense sweep at the top level only
     img_i, img_j = pyr_prev[n_levels], pyr_next[n_levels]
-    rng = max(2, min(8, min(img_i.shape) // 4))
+    rng = max(2, min(8, min(img_i.shape[-2:]) // 4))
     flow, interior = _dense_residual_flow(img_i, img_j, rng, win)
     me = _min_eig_dense(*scharr_xy(img_i), win)
     t_cur = _grid_fit(t_cur, flow, interior, me, float(2 ** n_levels), thr,
@@ -257,25 +276,26 @@ def lk_track_dense(pyr_prev: Sequence[torch.Tensor], pyr_next: Sequence[torch.Te
             t_cur = _grid_fit(t_cur, delta, torch.ones_like(good), min_eig, 1.0, thr,
                               resid_px=2.0, vote_range=3)
 
-    samp = _sample_maps(torch.stack([delta[..., 0], delta[..., 1], err, min_eig]), points)
-    d_pts = samp[0:2].T
-    err_pts = samp[2]
-    me_pts = samp[3]
+    samp = _sample_maps(torch.stack([delta[..., 0], delta[..., 1], err, min_eig], -3), points)
+    d_pts = samp[..., 0:2, :].mT
+    err_pts = samp[..., 2, :]
+    me_pts = samp[..., 3, :]
     new_pts = _apply_h(t_cur, points + d_pts)
     # independent-motion gate: a large residual delta after two Newton rounds
     saturated = d_pts.abs().amax(-1) > 1.5
 
-    in_final = ((new_pts[:, 0] >= 0.0) & (new_pts[:, 1] >= 0.0)
-                & (new_pts[:, 0] < w0) & (new_pts[:, 1] < h0))
+    in_final = ((new_pts[..., 0] >= 0.0) & (new_pts[..., 1] >= 0.0)
+                & (new_pts[..., 0] < w0) & (new_pts[..., 1] < h0))
     status = (valid & in_final & (me_pts > thr) & torch.isfinite(err_pts)
               & torch.isfinite(new_pts).all(-1) & ~saturated)
-    # residual-vs-cohort gate around the median error of the valid points
-    n_pts = points.shape[0]
+    # residual-vs-cohort gate around the median error of each pair's valid
+    # points
+    n_pts = points.shape[-2]
     masked_err = torch.where(status, err_pts, torch.inf)
-    cnt = status.to(torch.int64).sum()
-    mid = (cnt // 2).clamp(0, n_pts - 1).view(1)
-    med = torch.sort(masked_err).values.index_select(0, mid)[0]
+    cnt = status.to(torch.int64).sum(-1)
+    mid = (cnt // 2).clamp(0, n_pts - 1)
+    med = torch.sort(masked_err, -1).values.gather(-1, mid[..., None])[..., 0]
     med = torch.where(torch.isfinite(med), med, 0.0)
-    status = status & (err_pts <= torch.clamp(5.0 * med, min=10.0))
-    out_pts = torch.where(status[:, None], new_pts, points)
+    status = status & (err_pts <= torch.clamp(5.0 * med, min=10.0)[..., None])
+    out_pts = torch.where(status[..., None], new_pts, points)
     return LKResult(points=out_pts, status=status, error=err_pts)

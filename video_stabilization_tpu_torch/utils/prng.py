@@ -1,4 +1,4 @@
-"""Threefry-2x32 ``fold_in`` and ``bits``, bit-equal to ``jax.random``.
+"""Threefry-2x32 ``fold_in``, ``split`` and ``bits``, bit-equal to ``jax.random``.
 
 The JAX package draws its RANSAC hypotheses from
 ``jax.random.bits(jax.random.fold_in(key, 2·n), (H,), uint32)``.  To draw the
@@ -8,6 +8,7 @@ same hypotheses the port reproduces that stream exactly, for JAX's default
 - a key is its two 32-bit words (``jax.random.key_data``; ``key(s)`` is
   ``[0, s]`` for ``0 <= s < 2**32``);
 - ``fold_in(key, d)`` is ``threefry2x32(key, (0, d))``;
+- ``split(key, n)[i]`` is the same block, ``threefry2x32(key, (0, i))``;
 - ``bits(key, (n,))[i]`` is ``b1 ^ b2`` with
   ``(b1, b2) = threefry2x32(key, (0, i))``.
 
@@ -56,6 +57,12 @@ def fold_in(key_words: torch.Tensor, data) -> torch.Tensor:
     d = torch.as_tensor(data, device=key_words.device).to(torch.int64) & _MASK
     y0, y1 = threefry2x32(key_words, torch.zeros_like(d), d)
     return torch.stack([y0, y1], -1)
+
+
+def split(key_words: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.key_data(jax.random.split(key, n))``: (n, 2) keys from
+    a (2,) key, the ``fold_in`` of each index ``0 .. n-1``."""
+    return fold_in(key_words, torch.arange(n, dtype=torch.int64, device=key_words.device))
 
 
 def bits(key_words: torch.Tensor, n: int) -> torch.Tensor:

@@ -1,12 +1,13 @@
 """Per-stage host time and device time of the port's per-frame step.
 
-    python -m video_stabilization_tpu_torch.utils.stage_profile [--config {1,3,4}]
-        [--frames N] [--warm N] [--seed N] [--chunk K [--turns R]]
+    python -m video_stabilization_tpu_torch.utils.stage_profile [--config {1,3,4,5}]
+        [--frames N] [--warm N] [--seed N] [--chunk K [--turns R]] [--streams S]
 
 Counterpart of the JAX package's ``utils/stage_profile.py`` for one CUDA
 card.  Config 1 is 1080x1920 frames in GLOBAL_SMOOTHING, config 3 is
 720x1280 frames in ORB_FULL_LOCK, config 4 is 1080x1920 frames in
-SIFT_FULL_LOCK with ECC refinement (30 iterations), all at working height
+SIFT_FULL_LOCK with ECC refinement (30 iterations), config 5 is 1080x1920
+frames in TRANSLATION_LOCK, 8 streams by default, all at working height
 360 with a 30 + 1 + 15 window (``bench.py``'s configurations).  The step
 and the locks mark their stages with
 :func:`stage`, which opens a ``stage:<name>`` profiler range only while
@@ -19,7 +20,11 @@ count, the host ms, device events and device ms of each stage, and the
 device time of the heaviest kernels and of the hand-written ones.  With
 ``--chunk K`` it drives the offline chunk step (``engine/offline.py``) in
 K-frame chunks instead, ``--warm`` and ``--frames`` rounded up to whole
-chunks; its stages are those of the chunk.  With ``--turns R`` as well it
+chunks; its stages are those of the chunk.  With ``--streams S`` it drives
+S streams (one texture, trajectory seed 5 + ``--seed`` + s each, as
+``bench.py`` renders several streams) through the batched step
+(``parallel/streams.py``), or with ``--chunk K`` the stream-batched chunk,
+and a "frame" is then one frame of every stream.  With ``--turns R`` as well it
 profiles nothing: it times the two forms in turns, R times, each turn from
 fresh carries over the same frames (the offline form chunk by chunk, the
 streaming step over the same ``--frames`` after the same ``--warm``).  It
@@ -73,29 +78,60 @@ def card_line() -> str:
                           timeout=60).stdout.strip()
 
 
-def footage(cfg, n_frames: int, seed: int, dev) -> torch.Tensor:
-    """(T, H, W, 3) uint8 shaky simulator frames rendered on ``dev``."""
+# bench.py:149-152's footage of several streams: one texture (seed 0), and
+# stream s shaken along trajectory seed 5 + s
+STREAM_SEED = 5
+
+
+def footage(cfg, n_frames: int, seed: int, dev, streams: int = 0) -> torch.Tensor:
+    """(T, H, W, 3) uint8 shaky simulator frames rendered on ``dev`` from
+    ``seed``; with ``streams``, (S, T, H, W, 3) over one texture, stream s
+    along trajectory seed ``STREAM_SEED + seed + s`` (the benchmark's
+    streams at seed 0)."""
     from video_stabilization_tpu_torch.sim import (
         DEFAULT_APP_PARAMS, make_default_texture, render_frame, shake_trajectory)
 
+    def shaken(tex, rng):
+        traj = shake_trajectory(rng.standard_normal((n_frames, 3)),
+                                rng.standard_normal(n_frames), DEFAULT_APP_PARAMS,
+                                pos_amplitude=0.004, roll_amplitude=0.3, device=dev)
+        return torch.stack([render_frame(tex, traj[i], cfg.frame_height, cfg.frame_width)
+                            for i in range(n_frames)])
+
+    def texture(rng):
+        return torch.from_numpy(make_default_texture(rng, 512)).to(dev)
+
+    if streams:
+        tex = texture(np.random.default_rng(0))
+        return torch.stack([shaken(tex, np.random.default_rng(STREAM_SEED + seed + s))
+                            for s in range(streams)])
     rng = np.random.default_rng(seed)
-    tex = torch.from_numpy(make_default_texture(rng, 512)).to(dev)
-    traj = shake_trajectory(rng.standard_normal((n_frames, 3)),
-                            rng.standard_normal(n_frames), DEFAULT_APP_PARAMS,
-                            pos_amplitude=0.004, roll_amplitude=0.3, device=dev)
-    return torch.stack([render_frame(tex, traj[i], cfg.frame_height, cfg.frame_width)
-                        for i in range(n_frames)])
+    return shaken(texture(rng), rng)
 
 
-def feeder(cfg, mode, seed: int, chunk: int, dev):
+def feeder(cfg, mode, seed: int, chunk: int, dev, streams: int = 0):
     """A function that feeds a (T, H, W, 3) run of frames to one stream: the
     streaming step frame by frame, or with ``chunk`` the offline step in
-    ``chunk``-frame calls."""
+    ``chunk``-frame calls; with ``streams``, an (S, T, H, W, 3) run to S
+    streams through the batched step or the stream-batched chunk."""
     import dataclasses
 
-    from video_stabilization_tpu_torch.engine import Stabilizer, init_carry, make_offline_fn
+    from video_stabilization_tpu_torch.engine import (
+        Stabilizer, init_carry, make_offline_batched_fn, make_offline_fn)
+    from video_stabilization_tpu_torch.parallel import init_batched_carry, make_batched_step_fn
     from video_stabilization_tpu_torch.utils import prng
 
+    if streams:
+        cfg = dataclasses.replace(cfg, static_mode=int(mode))
+        state = {"carry": init_batched_carry(cfg, streams, int(mode), prng.key(seed), dev)}
+        fn = make_offline_batched_fn(cfg) if chunk else make_batched_step_fn(cfg)
+
+        def feed_streams(frames):
+            parts = ([frames[:, i:i + chunk] for i in range(0, frames.shape[1], chunk)]
+                     if chunk else frames.unbind(1))
+            for part in parts:
+                state["carry"], _ = fn(state["carry"], part)
+        return feed_streams
     if not chunk:
         stab = Stabilizer(cfg, mode, seed=seed, device=dev)
         return lambda frames: [stab.stabilize_frame(f) for f in frames]
@@ -141,7 +177,7 @@ def main() -> int:
         ECCConfig, StabilizationMode, StabilizerConfig)
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", type=int, choices=(1, 3, 4), default=3)
+    ap.add_argument("--config", type=int, choices=(1, 3, 4, 5), default=3)
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--warm", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
@@ -149,14 +185,21 @@ def main() -> int:
                     help="offline chunks of K frames (default 0: the streaming step)")
     ap.add_argument("--turns", type=int, default=0,
                     help="with --chunk: time offline and streaming in R turns, no profile")
+    ap.add_argument("--streams", type=int, default=0,
+                    help="S streams through the batched forms (default 0: one stream; "
+                         "config 5: 8)")
     args = ap.parse_args()
+    streams = args.streams or (8 if args.config == 5 else 0)
+    if args.turns and streams:
+        ap.error("--turns times one stream; it does not take --streams")
     if not torch.cuda.is_available():
         print("stage_profile: needs a CUDA card", file=sys.stderr)
         return 2
 
     size, mode = {1: ((1080, 1920), StabilizationMode.GLOBAL_SMOOTHING),
                   3: ((720, 1280), StabilizationMode.ORB_FULL_LOCK),
-                  4: ((1080, 1920), StabilizationMode.SIFT_FULL_LOCK)}[args.config]
+                  4: ((1080, 1920), StabilizationMode.SIFT_FULL_LOCK),
+                  5: ((1080, 1920), StabilizationMode.TRANSLATION_LOCK)}[args.config]
     cfg = StabilizerConfig(frame_height=size[0], frame_width=size[1], working_height=360,
                            past_frames=30, future_frames=15,
                            ecc=ECCConfig(enabled=args.config == 4, max_iters=30))
@@ -170,14 +213,18 @@ def main() -> int:
         time_in_turns(cfg, mode, footage(cfg, warm + n, args.seed, dev), args.seed,
                       args.chunk, warm, args.turns, dev)
         return 0
-    frames = footage(cfg, warm + 2 * n, args.seed, dev)
-    feed = feeder(cfg, mode, args.seed, args.chunk, dev)
-    feed(frames[:warm])
+    frames = footage(cfg, warm + 2 * n, args.seed, dev, streams)
+
+    def span(a, b):      # frames a..b-1 (of every stream)
+        return frames[:, a:b] if streams else frames[a:b]
+
+    feed = feeder(cfg, mode, args.seed, args.chunk, dev, streams)
+    feed(span(0, warm))
 
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     ev0.record()
-    feed(frames[warm:warm + n])
+    feed(span(warm, warm + n))
     ev1.record()
     torch.cuda.synchronize()
     wall = ev0.elapsed_time(ev1) / n
@@ -190,7 +237,7 @@ def main() -> int:
     try:
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            feed(frames[warm + n:])
+            feed(span(warm + n, warm + 2 * n))
             torch.cuda.synchronize()
             wall_prof = 1e3 * (time.perf_counter() - t0) / n
     finally:
@@ -206,6 +253,9 @@ def main() -> int:
     busy = sum(_device_us(e) for e in kernels) / 1e3 / n
     count = sum(e.count for e in kernels)
     form = f"offline chunks of {args.chunk}" if args.chunk else "streaming"
+    if streams:
+        form += (f", {streams} streams batched (a frame is one frame of each; "
+                 f"{streams * 1e3 / wall:.1f} frames/s in all, unprofiled)")
     print(f"config {args.config} ({size[0]}x{size[1]}, {mode.name}), {form}, {n} frames; "
           f"{card}")
     print(f"wall {wall:.3f} ms/frame (CUDA events, unprofiled), {wall_prof:.3f} under "
