@@ -59,7 +59,22 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    batch of one, bit for bit), where a batch of the streams rounds
    differently from one stream on the card, ms per batched frame
    and frames/s, device events per batched frame beside 8 x the
-   single-stream step's, and peak device memory.
+   single-stream step's, and peak device memory;
+10. serving: ``serve.main`` at bench config 5's size (8 simulator streams of
+   1080x1920 rendered on the card into C420 Y4M files, 48 frames, window 30
+   + 1 + 15, chunks of 8, GLOBAL_SMOOTHING), its files against the
+   in-memory ``stabilize_streams_sharded`` on the same decoded footage
+   (byte for byte through the writer's encode), the card's YUV decode
+   against the native reader's, warp launches per chunk, host syncs in the
+   loop, the wall time split (read, queueing, drain wait, drain write;
+   device H2D, compute, D2H), frames/s and the device's idle share; then a
+   short ``--mode orb`` run (2 streams x 16 frames) for FAST's serving path;
+11. the app: ``cli.app.main`` headless at its defaults (720x1280 simulator
+   frames, working height 360, window 60 + 1 + 45), 96 frames with
+   ``--checkpoint`` and ``--stats``, again with ``--resume`` (frame counter
+   192), once more in ``--mode orb-lock``; each file against
+   ``Stabilizer.stabilize_frame`` on the same frames, launches and host
+   syncs per frame, the loop's ms/frame beside the Stabilizer's alone.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -149,6 +164,18 @@ BATCHED_PATHS = {
     "offline_config5": (N_STREAMS * STREAM_CHUNK, STREAM_CHUNK, WARPS_PER_FRAME["config1"]),
 }
 ECC_WARPS = {(1, 360, 640): ECC_ITERS + 2}   # per frame at config 4, single launches
+# phase 10: serve.main at bench config 5's size; a short ORB run for the
+# FAST kernel's serving path
+SERVE_STREAMS, SERVE_FRAMES, SERVE_CHUNK, SERVE_SIZE = 8, 48, 8, (1080, 1920)
+SERVE_ARGV = ["--simulator", str(SERVE_STREAMS), "--frames", str(SERVE_FRAMES), "--sim-size",
+              "1920x1080", "--past-window", "1.0", "--future-window", "0.5", "--chunk",
+              str(SERVE_CHUNK), "--mode", "smoothing"]
+SERVE_ORB_ARGV = ["--simulator", "2", "--frames", "16", "--sim-size", "1920x1080",
+                  "--past-window", "1.0", "--future-window", "0.5", "--chunk", "8",
+                  "--mode", "orb"]
+# phase 11: the app at its defaults (720x1280 simulator, working height
+# 360, window 60 + 1 + 45)
+APP_FRAMES = 96
 
 
 def rigid(theta_deg: float, tx: float = 0.0, ty: float = 0.0) -> np.ndarray:
@@ -1257,6 +1284,328 @@ def phase_streams(cfg, seed: int, dev, card: str) -> dict:
     return result
 
 
+def y4m_raw_frames(path: str) -> list:
+    """The raw Y|U|V bytes of every frame of a Y4M file (native reader)."""
+    from video_stabilization_tpu_torch.io.native import NativeY4MReader
+
+    r = NativeY4MReader(path)
+    frames = []
+    while (raw := r.read_yuv()) is not None:
+        frames.append(raw.tobytes())
+    r.close()
+    return frames
+
+
+def encoded(frames, c420: bool) -> list:
+    """Each (H, W, 3) u8 frame's Y4M plane bytes, ``VideoWriter``'s encode,
+    on a pool of host threads (numpy releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from video_stabilization_tpu_torch.io.video import encode_y4m_planes
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(lambda f: encode_y4m_planes(f, c420), frames))
+
+
+def loop_syncs(caught) -> list:
+    return [f"{w.filename}:{w.lineno}" for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def phase_serve(seed: int, dev, card: str) -> dict:
+    """Phase 10: the serving entry point, ``serve.main``, at bench config
+    5's size (SERVE_ARGV: 8 simulator streams of 1080x1920 rendered on the
+    card into C420 Y4M files, window 30 + 1 + 15, chunks of 8); then a
+    short ``--mode orb`` run (SERVE_ORB_ARGV), the FAST kernel's serving
+    path.  Checks the frames written against the in-memory path
+    (``stabilize_streams_sharded`` on the same decoded footage, through the
+    writer's encode, byte for byte), the card's YUV decode against the
+    native reader's, warp launches per chunk, the loop's host syncs; prints
+    the wall time split, frames/s and the device's idle share in the loop
+    (kernel time of a profiled run of two chunks against the unprofiled
+    loop's wall per chunk)."""
+    import os
+    import shutil
+    import tempfile
+
+    from video_stabilization_tpu_torch import serve
+    from video_stabilization_tpu_torch.config import StabilizationMode
+    from video_stabilization_tpu_torch.io.native import NativeY4MReader
+    from video_stabilization_tpu_torch.ops import affine_warp as aw
+    from video_stabilization_tpu_torch.ops import fast
+    from video_stabilization_tpu_torch.ops.image import yuv_flat_to_bgr
+    from video_stabilization_tpu_torch.utils.stage_profile import _device_us
+
+    tmp = tempfile.mkdtemp(prefix="smoke_serve_")
+    inputs = []
+    try:
+        out_dir = os.path.join(tmp, "out")
+        aw.launches = 0
+        fast.launches = 0
+        serve.loop_sync_debug = "warn"
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                serve.main(SERVE_ARGV + ["--output-dir", out_dir], device=dev, keep_inputs=True)
+            finally:
+                serve.loop_sync_debug = None
+        run = dict(serve.last_run)
+        launches, fast_launches = aw.launches, fast.launches
+        syncs = loop_syncs(caught)
+        inputs = run["inputs"]
+        s, frames, chunks = run["streams"], run["frames"], run["chunks"]
+        if s != SERVE_STREAMS or frames != SERVE_FRAMES or chunks != SERVE_FRAMES // SERVE_CHUNK:
+            raise AssertionError(f"serve: {s} streams, {frames} frames, {chunks} chunks")
+
+        # the in-memory path on the same decoded footage
+        h, w = SERVE_SIZE
+        footage = []
+        for path in inputs:
+            r = NativeY4MReader(path)
+            footage.append(yuv_flat_to_bgr(torch.from_numpy(r.read_yuv_block(frames)).to(dev),
+                                           h, w, True))
+            r.close()
+        footage = torch.stack(footage)
+        decode_equal = 0
+        for si, path in enumerate(inputs):
+            r = NativeY4MReader(path)
+            for t in range(frames):
+                decode_equal += bool(np.array_equal(footage[si, t].cpu().numpy(), r.read()))
+            r.close()
+        cfg = serve._serve_config(h, w, 360, 30, 15, int(StabilizationMode.GLOBAL_SMOOTHING))
+        outs, valid, _ = serve.stabilize_streams_sharded(footage, cfg, [dev], chunk=SERVE_CHUNK)
+        del footage
+        n_valid = valid.sum(1).tolist()
+        written, equal = [], 0
+        for si, path in enumerate(inputs):
+            got = y4m_raw_frames(os.path.join(out_dir, f"stabilized_{os.path.basename(path)}"))
+            want = encoded(list(outs[si][valid[si]].cpu().numpy()), True)
+            written.append(len(got))
+            equal += sum(g == w_ for g, w_ in zip(got, want))
+        del outs
+        shutil.rmtree(out_dir)
+
+        # the device's idle share: kernel time of two profiled chunks
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            serve.serve_files(inputs, out_dir, "smoothing", past=30, future=15,
+                              chunk=SERVE_CHUNK, max_frames=2 * SERVE_CHUNK, devices=[dev],
+                              log=lambda *a: None)
+            torch.cuda.synchronize()
+        prof_run = dict(serve.last_run)
+        busy_ms = sum(_device_us(e) for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        busy_per_chunk = busy_ms / prof_run["chunks"]
+        wall_per_chunk = 1e3 * run["wall_s"] / chunks
+        idle = 1.0 - busy_per_chunk / wall_per_chunk
+        idle_prof = 1.0 - busy_ms / (1e3 * prof_run["wall_s"])
+        for path in inputs:
+            os.unlink(path)
+
+        # the FAST kernel's serving path: ORB lock streams
+        fast.launches = 0
+        orb_before = aw.launches
+        serve.main(SERVE_ORB_ARGV, device=dev)
+        orb_run = dict(serve.last_run)
+        orb_fast = fast.launches
+        orb_warps = aw.launches - orb_before
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for path in inputs:
+            shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+
+    tag = "serve"
+    fps = frames * s / run["wall_s"]
+    print(f"{tag}: serve.main {' '.join(SERVE_ARGV)}: {s} streams x {frames} frames "
+          f"{w}x{h} C420 in {chunks} chunks of {SERVE_CHUNK}; frames written per stream "
+          f"{written}, marked valid by the in-memory path {n_valid}", flush=True)
+    print(f"{tag}: written frames equal to the in-memory path's through the C420 encode: "
+          f"{equal} of {sum(written)}; card YUV decode equal to the native reader's host "
+          f"conversion: {decode_equal} of {s * frames} frames", flush=True)
+    print(f"{tag}: warp launches {launches} ({launches / chunks:.2f} per chunk, "
+          f"{BATCHED_LAUNCHES} expected), FAST {fast_launches}; host syncs in the loop "
+          f"flagged by set_sync_debug_mode('warn'): {len(syncs)}"
+          + (f" {sorted(set(syncs))}" if syncs else "")
+          + f"; event waits {run['event_waits']} ({run['event_waits'] / chunks:.0f} per "
+          "chunk, the drain's)", flush=True)
+    print(f"{tag}: wall {run['wall_s']:.3f} s: read {run['read_s']:.3f} s, queueing H2D + "
+          f"decode + chunk + D2H {run['queue_s']:.3f} s, drain wait {run['wait_s']:.3f} s, "
+          f"drain write {run['write_s']:.3f} s (host clock); device H2D "
+          f"{run['h2d_ms']:.2f} ms, decode + chunk {run['compute_ms']:.2f} ms, D2H "
+          f"{run['d2h_ms']:.2f} ms (CUDA events); {fps:.1f} frames/s in all, "
+          f"{fps / s:.2f} per stream", flush=True)
+    print(f"{tag}: device idle share in the loop {idle:.3f} (kernel time {busy_per_chunk:.2f} "
+          f"ms per chunk, torch.profiler over {prof_run['chunks']} chunks, against the "
+          f"unprofiled wall {wall_per_chunk:.2f} ms per chunk; {idle_prof:.3f} of the "
+          f"profiled run's own wall); {card}", flush=True)
+    print(f"{tag}: serve.main {' '.join(SERVE_ORB_ARGV)}: {orb_run['streams']} streams x "
+          f"{orb_run['frames']} frames, FAST launches {orb_fast} "
+          f"({orb_fast / (orb_run['streams'] * orb_run['frames']):.2f} per stream frame), "
+          f"warp launches {orb_warps}, "
+          f"{orb_run['frames'] * orb_run['streams'] / orb_run['wall_s']:.1f} frames/s in all",
+          flush=True)
+    if written != n_valid or equal != sum(written):
+        raise AssertionError(f"{tag}: files differ from the in-memory path (written {written}, "
+                             f"valid {n_valid}, equal {equal})")
+    if decode_equal != s * frames:
+        raise AssertionError(f"{tag}: the card's YUV decode differs from the native reader")
+    if launches != BATCHED_LAUNCHES * chunks:
+        raise AssertionError(f"{tag}: {launches} warp launches in {chunks} chunks")
+    if syncs or run["event_waits"] != chunks:
+        raise AssertionError(f"{tag}: loop syncs {syncs}, event waits {run['event_waits']}")
+    if orb_fast != orb_run["streams"] * orb_run["frames"]:
+        raise AssertionError(f"{tag}: FAST launched {orb_fast} times in the ORB serve run")
+    # "frames": batched frames (one of each stream), as config 5's offline path
+    return {"launches": launches, "frames": frames, "chunks": chunks, "fps": fps,
+            "idle": idle, "syncs": len(syncs), "fast_launches": orb_fast,
+            "fast_frames": orb_run["streams"] * orb_run["frames"]}
+
+
+def phase_app(seed: int, dev, card: str) -> dict:
+    """Phase 11: the app, ``cli.app.main``, headless at its defaults
+    (720x1280 simulator frames rendered on the card, working height 360,
+    window 60 + 1 + 45): APP_FRAMES frames to a Y4M file with
+    ``--checkpoint`` and ``--stats``; again with ``--resume`` (the frame
+    counter reaches 2 x APP_FRAMES); once more fresh in ``--mode
+    orb-lock``.  Each run's file against a ``Stabilizer.stabilize_frame``
+    run on the same ``SimulatorSource`` frames (the resumed one from the
+    first run's checkpoint), byte for byte through the writer's encode;
+    launches and host syncs per frame, the loop's ms/frame beside the
+    ``Stabilizer`` alone; then the host syncs of one ``make_step_fn`` call
+    and one ``make_scan_fn`` call with the mode from ``carry.mode`` (one
+    read each) and pinned by ``static_mode`` (none)."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from video_stabilization_tpu_torch.cli import app
+    from video_stabilization_tpu_torch.config import StabilizationMode, StabilizerConfig
+    from video_stabilization_tpu_torch.engine import (
+        Stabilizer, init_carry, make_scan_fn, make_step_fn)
+    from video_stabilization_tpu_torch.io import SimulatorSource
+    from video_stabilization_tpu_torch.ops import affine_warp as aw
+    from video_stabilization_tpu_torch.ops import fast
+    from video_stabilization_tpu_torch.utils import prng
+
+    cfg = StabilizerConfig(frame_height=720, frame_width=1280, working_height=360,
+                           past_frames=60, future_frames=45)
+    tmp = tempfile.mkdtemp(prefix="smoke_app_")
+    runs = {}
+    try:
+        ckpt = os.path.join(tmp, "s.npz")
+        first_ckpt = os.path.join(tmp, "s1.npz")
+        plans = (("fresh", ["--checkpoint", ckpt, "--stats"], StabilizationMode.GLOBAL_SMOOTHING),
+                 ("resumed", ["--checkpoint", ckpt, "--resume", ckpt],
+                  StabilizationMode.GLOBAL_SMOOTHING),
+                 ("orb-lock", ["--mode", "orb-lock"], StabilizationMode.ORB_FULL_LOCK))
+        for name, extra, mode in plans:
+            out = os.path.join(tmp, f"{name}.y4m")
+            argv = (["--simulator", "--no-display", "--max-frames", str(APP_FRAMES),
+                     "--output", out] + extra)
+            if name == "resumed":
+                shutil.copy(ckpt, first_ckpt)
+            aw.launches = 0
+            fast.launches = 0
+            app.loop_sync_debug = "warn"
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                try:
+                    app.main(argv, device=dev)
+                finally:
+                    app.loop_sync_debug = None
+            wall = time.perf_counter() - t0
+            run = dict(app.last_run, warp=aw.launches, fast=fast.launches,
+                       syncs=loop_syncs(caught), wall=wall,
+                       argv=" ".join(os.path.basename(a) if a.startswith(tmp) else a
+                                     for a in argv))
+            got = y4m_raw_frames(out)
+
+            # the same frames through the Stabilizer alone
+            src = SimulatorSource(device=dev)
+            stab = Stabilizer(cfg, mode, device=dev)
+            if name == "resumed":
+                stab.resume(first_ckpt)
+            ref = []
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            for i in range(APP_FRAMES):
+                if i == 8:
+                    ev0.record()
+                ref.append(stab.stabilize_frame(src.read_tensor()))
+            ev1.record()
+            ev1.synchronize()
+            run["ref_ms"] = ev0.elapsed_time(ev1) / (APP_FRAMES - 8)
+            want = encoded([f.cpu().numpy() for f in ref[cfg.future_frames:]], False)
+            run["written_file"] = len(got)
+            run["equal"] = sum(g == w_ for g, w_ in zip(got, want))
+            run["want"] = len(want)
+            runs[name] = run
+            del ref, stab
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the step factories' host mode: one read of carry.mode per call unless
+    # the config pins static_mode (engine/stabilizer.py::host_mode)
+    src = SimulatorSource(device=dev)
+    frames = torch.stack([src.read_tensor() for _ in range(4)])
+    factory = {}
+    for label, c in (("carry.mode", cfg), ("static_mode", dataclasses.replace(
+            cfg, static_mode=int(StabilizationMode.GLOBAL_SMOOTHING)))):
+        carry = init_carry(c, int(StabilizationMode.GLOBAL_SMOOTHING), prng.key(seed), dev)
+        step = make_step_fn(c)
+        carry, _ = step(carry, frames[0])          # warm-up
+        (carry, _), step_syncs = count_syncs(lambda: step(carry, frames[1]))
+        _, scan_syncs = count_syncs(lambda: make_scan_fn(c)(carry, frames[2:]))
+        factory[label] = (step_syncs, scan_syncs)
+    del frames, carry
+
+    tag = "app"
+    for label, (step_syncs, scan_syncs) in factory.items():
+        print(f"{tag}: make_step_fn with the mode from {label}: {len(step_syncs)} host syncs "
+              f"per call {sorted(set(step_syncs))}; make_scan_fn over 2 frames: "
+              f"{len(scan_syncs)} per call {sorted(set(scan_syncs))}", flush=True)
+    for name, run in runs.items():
+        lines = sorted(set(run["syncs"]))
+        print(f"{tag} {name}: cli.app.main {run['argv']}: {run['frames']} frames, "
+              f"{run['written']} written ({run['written_file']} in the file), equal to the "
+              f"Stabilizer's outputs {run['equal']} of {run['want']}; "
+              f"frame counter at exit {run['frame_counter']}", flush=True)
+        print(f"{tag} {name}: warp launches {run['warp']} ({run['warp'] / run['frames']:.2f} "
+              f"per frame), FAST {run['fast']} ({run['fast'] / run['frames']:.2f} per frame); "
+              f"host syncs in the loop {len(run['syncs'])} "
+              f"({len(run['syncs']) / run['frames']:.2f} per frame) at {lines}", flush=True)
+        print(f"{tag} {name}: loop {run['ms_per_frame']:.3f} ms/frame (the app's rolling "
+              f"average, host clock), Stabilizer.stabilize_frame alone {run['ref_ms']:.3f} "
+              f"ms/frame (CUDA events, frames 8..{APP_FRAMES - 1}); run wall "
+              f"{run['wall']:.2f} s; {card}", flush=True)
+    want_written = APP_FRAMES - cfg.future_frames
+    for name, run in runs.items():
+        if not (run["written"] == run["written_file"] == run["want"] == want_written
+                and run["equal"] == want_written):
+            raise AssertionError(f"{tag} {name}: written {run['written']} / "
+                                 f"{run['written_file']}, equal {run['equal']}")
+    if runs["resumed"]["frame_counter"] != 2 * APP_FRAMES:
+        raise AssertionError(f"{tag}: resumed counter {runs['resumed']['frame_counter']}")
+    for name in ("resumed", "orb-lock"):
+        if runs[name]["warp"] != LAUNCHES_PER_FRAME["config3"] * APP_FRAMES:
+            raise AssertionError(f"{tag} {name}: {runs[name]['warp']} warp launches")
+    read = [x for syncs in factory["carry.mode"] for x in syncs]
+    if (len(factory["carry.mode"][0]) != 1 or len(factory["carry.mode"][1]) != 1
+            or any("engine/stabilizer.py" not in x for x in read)
+            or any(factory["static_mode"])):
+        raise AssertionError(f"{tag}: step factories' host syncs {factory}")
+    if runs["orb-lock"]["fast"] != FAST_LAUNCHES_PER_FRAME * APP_FRAMES:
+        raise AssertionError(f"{tag}: FAST launched {runs['orb-lock']['fast']} times in "
+                             f"{APP_FRAMES} orb-lock frames")
+    bad = [x for run in runs.values() for x in run["syncs"]
+           if "affine_warp.py" in x or "ops/fast.py" in x]
+    if bad:
+        raise AssertionError(f"{tag}: a kernel wrapper synchronized the host: {bad}")
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1325,6 +1674,8 @@ def main() -> int:
     cfg5 = StabilizerConfig(frame_height=1080, frame_width=1920, working_height=360,
                             past_frames=30, future_frames=15)
     streams = phase_streams(cfg5, args.seed, dev, card)
+    served = phase_serve(args.seed, dev, card)
+    apps = phase_app(args.seed, dev, card)
 
     # launches: each main path's run, counted from 0 just before it; ms,
     # plain_ms and bound_ms are per frame.  The top-level numbers of a kernel
@@ -1333,7 +1684,10 @@ def main() -> int:
           f"config 4 {sift['syncs']}; per offline chunk (the warm-up one): {off1['syncs']}, "
           f"{off3['syncs']}, {off4['syncs']}; config 5, batched step and chunk: "
           f"{streams['TRANSLATION_LOCK']['syncs']} (TRANSLATION_LOCK), "
-          f"{streams['GLOBAL_SMOOTHING']['syncs']} (GLOBAL_SMOOTHING)", flush=True)
+          f"{streams['GLOBAL_SMOOTHING']['syncs']} (GLOBAL_SMOOTHING); serving loop "
+          f"{served['syncs']} (and one event wait per chunk, the drain's); app loop per frame "
+          + ", ".join(f"{k} {len(r['syncs']) / r['frames']:.2f}" for k, r in apps.items()),
+          flush=True)
     def counted(launches: int, run: dict) -> dict:
         return {"launches": launches, "launches_per_frame": launches / run["frames"]}
 
@@ -1348,10 +1702,20 @@ def main() -> int:
         "config5": {**counted(streams["step"]["launches"], streams["step"]),
                     **kern["config5"]},
         "offline_config5": {**counted(streams["offline"]["launches"], streams["offline"]),
-                            **kern["offline_config5"]}}
+                            **kern["offline_config5"]},
+        # per batched frame of 8 streams; the serving chunk is config 5's
+        # offline chunk
+        "serve": {**counted(served["launches"], served), **kern["offline_config5"]},
+        # the app's frames are config 3's size (720x1280, working height 360)
+        "cli": {**counted(apps["resumed"]["warp"], apps["resumed"]), **kern["config3"]},
+        "cli_orb": {**counted(apps["orb-lock"]["warp"], apps["orb-lock"]), **kern["config3"]}}
     fast_times = {k: fk[k] for k in ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by")}
     fast_paths = {"config3": {**counted(orb["fast_launches"], orb), **fast_times},
-                  "offline_config3": {**counted(off3["fast_launches"], off3), **fast_times}}
+                  "offline_config3": {**counted(off3["fast_launches"], off3), **fast_times},
+                  "serve_orb": {**counted(served["fast_launches"],
+                                          {"frames": served["fast_frames"]}), **fast_times},
+                  "cli_orb": {**counted(apps["orb-lock"]["fast"], apps["orb-lock"]),
+                              **fast_times}}
     record = {"kernels": [{
         "name": "affine_warp",
         "route": "cuda",

@@ -383,3 +383,71 @@ def test_batched_step_kernel_matches_plain_warp(dev):
     for name in ("last_h", "transforms", "accum_h", "corners_prev"):
         assert torch.equal(getattr(a_k, name), getattr(a_p, name)), name
         assert torch.equal(getattr(b_k, name), getattr(b_p, name)), name
+
+
+@pytest.mark.parametrize("c420", [True, False])
+def test_yuv_decode_on_the_card_matches_cpu(dev, c420):
+    """The YUV decode on the card equals the CPU's (and so the native
+    reader's) bit for bit, a batch of frames at 1080x1920."""
+    from video_stabilization_tpu_torch.ops.image import yuv_flat_to_bgr
+
+    h, w = 1080, 1920
+    n = h * w * 3 // 2 if c420 else h * w * 3
+    buf = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 3, n),
+                                                             dtype=np.uint8))
+    got = yuv_flat_to_bgr(buf.to(dev), h, w, c420)
+    assert got.shape == (2, 3, h, w, 3) and got.device.type == "cuda"
+    assert torch.equal(got.cpu(), yuv_flat_to_bgr(buf, h, w, c420))
+
+
+def test_serve_on_the_card(dev, tmp_path):
+    """``serve_files`` on the card: 4 streams of 8 frames of 240x320 in
+    chunks of 4 equal the in-memory path on the card byte for byte (through
+    the C420 encode), launch the warp 5 times per chunk, wait on one event
+    per chunk, and stay within half a level on average of the same run on
+    the CPU (the card rounds its reductions differently)."""
+    import os
+
+    from video_stabilization_tpu_torch import serve
+    from video_stabilization_tpu_torch.config import StabilizationMode, StabilizerConfig
+    from video_stabilization_tpu_torch.io.native import NativeY4MReader
+    from video_stabilization_tpu_torch.io.video import encode_y4m_planes
+    from video_stabilization_tpu_torch.ops.image import yuv_flat_to_bgr
+
+    cfg = StabilizerConfig(past_frames=4, future_frames=2, working_height=120,
+                           frame_height=240, frame_width=320,
+                           static_mode=int(StabilizationMode.GLOBAL_SMOOTHING))
+    def raw_frames(path):
+        r = NativeY4MReader(path)
+        frames = []
+        while (raw := r.read_yuv()) is not None:
+            frames.append(raw)
+        r.close()
+        return np.stack(frames)
+
+    paths = serve._render_sim_streams(4, 8, 240, 320, str(tmp_path), dev, log=lambda *a: None)
+    outs = {}
+    for where in ("cuda", "cpu"):
+        before = aw.launches
+        done, _ = serve.serve_files(paths, str(tmp_path / where), "smoothing", chunk=4,
+                                    config=cfg, devices=[where], log=lambda *a: None)
+        assert done == 8
+        if where == "cuda":
+            assert aw.launches - before == 5 * 2
+            assert serve.last_run["event_waits"] == 2
+        outs[where] = [raw_frames(str(tmp_path / where / f"stabilized_{os.path.basename(p)}"))
+                       for p in paths]
+    footage = []
+    for p in paths:
+        r = NativeY4MReader(p)
+        footage.append(yuv_flat_to_bgr(torch.from_numpy(r.read_yuv_block(8)).to(dev),
+                                       240, 320, True))
+        r.close()
+    mem, valid, _ = serve.stabilize_streams_sharded(torch.stack(footage), cfg, [dev], chunk=4)
+    assert bool(valid.all())
+    for s in range(4):
+        want = np.stack([np.frombuffer(encode_y4m_planes(f, True), np.uint8)
+                         for f in mem[s].cpu().numpy()])
+        assert np.array_equal(outs["cuda"][s], want), f"stream {s}"
+        diff = np.abs(outs["cuda"][s].astype(np.int16) - outs["cpu"][s].astype(np.int16))
+        assert diff.mean() <= 0.5, f"stream {s}: mean |card - CPU| {diff.mean()}"

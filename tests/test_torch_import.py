@@ -26,7 +26,8 @@ def run_python(code: str, env_extra=None) -> subprocess.CompletedProcess:
 
 def test_port_imports_without_jax():
     """Every module of the port, and chip_smoke.py, load neither JAX nor any
-    module of the JAX package."""
+    module of the JAX package; the walk imports ``cli.__main__`` too, which
+    must not run the app."""
     proc = run_python(
         "import importlib, pkgutil, sys\n"
         "import video_stabilization_tpu_torch as pkg\n"
@@ -42,6 +43,9 @@ def test_port_imports_without_jax():
         "assert 'video_stabilization_tpu_torch.engine.lock' in names, names\n"
         "assert 'video_stabilization_tpu_torch.engine.offline' in names, names\n"
         "assert 'video_stabilization_tpu_torch.parallel.streams' in names, names\n"
+        "for mod in ('io', 'io.native', 'io.video', 'cli', 'cli.app', 'cli.args',\n"
+        "            'cli.term_display', 'cli.__main__', 'serve', 'utils.timing'):\n"
+        "    assert 'video_stabilization_tpu_torch.' + mod in names, (mod, names)\n"
         "print('ok')")
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"

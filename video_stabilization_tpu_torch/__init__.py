@@ -17,7 +17,12 @@ Subpackages
   registration lock, ``Stabilizer``.
 - ``parallel``: many streams on one card (a stream dimension in the carry).
 - ``sim``    : the floor-texture camera simulator with analytic truth.
-- ``utils``  : the threefry PRNG and the CUDA kernel build helper.
+- ``io``     : frame sources and sinks, the native Y4M reader and rings.
+- ``cli``    : the application (``python -m video_stabilization_tpu_torch.cli``).
+- ``serve``  : the multi-stream serving harness
+  (``python -m video_stabilization_tpu_torch.serve``).
+- ``utils``  : the threefry PRNG, the CUDA kernel build helper, timing and
+  the stage profiler.
 """
 
 from video_stabilization_tpu_torch.config import (  # noqa: F401

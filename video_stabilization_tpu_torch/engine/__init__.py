@@ -1,9 +1,11 @@
-"""The stabilization engine: carry, per-frame step, offline chunks (of one
-stream or of S), smoothing, modes."""
+"""The stabilization engine: carry, per-frame step and its factories,
+offline chunks (of one stream or of S), smoothing, modes, checkpoints."""
 
 from video_stabilization_tpu_torch.engine.checkpoint import (  # noqa: F401
     carry_from_numpy,
     carry_to_numpy,
+    load_carry,
+    save_carry,
 )
 from video_stabilization_tpu_torch.engine.lock import (  # noqa: F401
     LockResult,
@@ -21,6 +23,8 @@ from video_stabilization_tpu_torch.engine.smoothing import smoothing_homography 
 from video_stabilization_tpu_torch.engine.stabilizer import (  # noqa: F401
     Stabilizer,
     frame_keys,
+    make_scan_fn,
+    make_step_fn,
     stabilize_step,
 )
 from video_stabilization_tpu_torch.engine.state import (  # noqa: F401

@@ -17,7 +17,11 @@ motion model with dense LK, cell GFTT and batched-hypothesis RANSAC:
  10. GFTT for the next frame
 
 The mode is a host ``int`` (``Stabilizer`` keeps it, the carry mirrors it as
-a tensor), so branching on it never waits for the device.  The JAX
+a tensor), so branching on it never waits for the device.  The step
+factories :func:`make_step_fn` and :func:`make_scan_fn` keep the JAX
+signatures ``(carry, frame)`` and ``(carry, frames)``: they take the mode
+from ``config.static_mode`` when it is set, else from one read of
+``carry.mode`` per call (on the card, the one host sync of the call).  The JAX
 package's data-dependent ``lax.cond`` on small values become
 ``torch.where`` over both sides.  On a CUDA card a step reads nothing back
 to the host: the warp kernel decides its envelope branch on the device
@@ -31,7 +35,8 @@ motion models, the host-estimator split (``ext_motion``) and the
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import functools
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
@@ -275,6 +280,51 @@ def stabilize_step(
     return new_carry, (output, out_valid)
 
 
+def host_mode(carry: EngineCarry, config: StabilizerConfig) -> int:
+    """The mode a step of ``carry`` runs: ``config.static_mode`` when set,
+    else ``carry.mode`` read to the host (a sync when the carry is on the
+    card)."""
+    if config.static_mode is not None:
+        return int(config.static_mode)
+    return int(carry.mode)
+
+
+@functools.lru_cache(maxsize=32)
+def make_step_fn(config: StabilizerConfig) -> Callable:
+    """(carry, frame (Hf, Wf, C) u8) -> (carry, (output, valid)): the step
+    specialized to ``config``, as the JAX package's ``make_step_fn``.  The
+    mode is :func:`host_mode`'s: one read of ``carry.mode`` per call unless
+    ``config.static_mode`` is set.  ``carry.frames`` is updated in place
+    (the JAX step donates the carry)."""
+    check_config(config)
+
+    def step(carry: EngineCarry, frame: torch.Tensor):
+        return stabilize_step(carry, frame, config, host_mode(carry, config))
+
+    return step
+
+
+@functools.lru_cache(maxsize=32)
+def make_scan_fn(config: StabilizerConfig) -> Callable:
+    """(carry, frames (T, Hf, Wf, C) u8) -> (carry, (outputs (T, Hf, Wf,
+    C), valid (T,))): the step over a clip, frame by frame on the carry's
+    device, as the JAX package's ``lax.scan`` of it.  The mode is read once
+    per clip (:func:`host_mode`); the step keeps ``carry.mode``."""
+    check_config(config)
+
+    def scan(carry: EngineCarry, frames):
+        frames = torch.as_tensor(frames).to(carry.frames.device)
+        mode = host_mode(carry, config)
+        outputs, valid = [], []
+        for frame in frames:
+            carry, (out, ok) = stabilize_step(carry, frame, config, mode)
+            outputs.append(out)
+            valid.append(ok)
+        return carry, (torch.stack(outputs), torch.stack(valid))
+
+    return scan
+
+
 class Stabilizer:
     """One stream: construct with a config, feed frames one at a time,
     switch modes at runtime (the reference's public API).  It runs on the
@@ -319,6 +369,19 @@ class Stabilizer:
             lock_prev_h=eye.clone(),
             last_lock_matches=torch.zeros((), dtype=torch.int32, device=dev),
         )
+
+    @property
+    def mode(self) -> int:
+        """The host mode the next step runs (``carry.mode``'s host copy)."""
+        return self._mode
+
+    def resume(self, path: str) -> None:
+        """Restore the carry saved by ``engine.checkpoint.save_carry`` (of
+        either package) and take the host mode from its ``mode``."""
+        from video_stabilization_tpu_torch.engine.checkpoint import load_carry
+
+        self.carry = load_carry(path, self.carry)
+        self._mode = int(self.carry.mode)
 
     def _as_frame(self, frame) -> torch.Tensor:
         if isinstance(frame, np.ndarray):

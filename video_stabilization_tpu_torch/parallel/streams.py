@@ -107,15 +107,23 @@ def make_batched_scan_fn(config: StabilizerConfig) -> Callable:
     return scan
 
 
+def _indexed(device) -> torch.device:
+    """``device`` with its index: plain "cuda" is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def make_stream_mesh(devices: Sequence | None = None) -> List[torch.device]:
-    """The devices the streams run on: the given ones, or every CUDA card
-    (raises without one)."""
+    """The devices the streams run on: the given ones ("cuda" is the
+    current card), or every CUDA card (raises without one)."""
     if devices is None:
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         if not devices:
             raise RuntimeError("make_stream_mesh: no CUDA device; pass devices=['cpu'] "
                                "to run on the CPU")
-    return [torch.device(d) for d in devices]
+    return [_indexed(d) for d in devices]
 
 
 def _mesh_device(mesh: Sequence[torch.device]) -> torch.device:

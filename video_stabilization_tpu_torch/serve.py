@@ -1,0 +1,370 @@
+"""Multi-stream serving harness: N video streams -> the stream-batched
+offline pipeline on one card -> per-stream stabilized outputs.
+
+Port of ``video_stabilization_tpu/serve.py``.  Data path per chunk of K
+frames of every stream:
+
+  native C++ Y4M block fread (``io/native.py``, one call per stream and
+  chunk) straight into pinned host memory
+    -> one asynchronous H2D copy of the (S, K, bytes) planar YUV (1.5 B/px
+       for C420)
+    -> YUV -> BGR on the card (``ops/image.py::yuv_flat_to_bgr``)
+    -> the stream-batched offline chunk (``parallel/streams.py``, a
+       one-device mesh)
+    -> asynchronous D2H copies of the outputs into pinned host memory, then
+       an event
+    -> per-stream Y4M writers, one chunk behind.
+
+Two sets of pinned buffers alternate between chunks.  The host waits on a
+chunk's event only when it drains that chunk, after it has queued the next
+one, so the card computes chunk i while the host writes chunk i - 1: a
+``.cpu()`` on the one compute stream would wait for chunk i as well.
+
+Run it (on the card; ``device="cpu"`` from Python for the CPU):
+
+  python -m video_stabilization_tpu_torch.serve --files a.y4m b.y4m \\
+      --mode smoothing --output-dir out/
+  python -m video_stabilization_tpu_torch.serve --simulator 8 --frames 64 \\
+      --mode accumulated --output-dir out/
+
+The in-memory entry point :func:`stabilize_streams_sharded` runs the same
+pipeline on decoded footage; ``serve_files``' outputs equal it bit for bit
+(the writers only encode what came out).  A mesh of more than one device
+is not ported yet and raises (ROADMAP Queue 1 item 15).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import os
+import shutil
+import sys
+import tempfile
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+# the last serve_files run's counts and its wall time split (seconds):
+# fread, queueing (H2D, decode, the chunk, the D2H copies), the drain's event
+# waits and its writes; device ms of the H2D copies, the decode and chunk,
+# and the D2H copies (CUDA events, on the card only)
+last_run: dict = {}
+# ``torch.cuda.set_sync_debug_mode`` of the chunk loop on the card (after
+# the set-up): "warn" lists every synchronizing call the loop makes; the
+# drain's event waits are counted in ``last_run["event_waits"]`` instead
+loop_sync_debug = None
+
+
+def pick_serving_devices(devices: Sequence, n_streams: int) -> list:
+    """Largest device prefix that divides the stream count (each device
+    takes an equal share of the streams)."""
+    for d in range(min(len(devices), n_streams), 0, -1):
+        if n_streams % d == 0:
+            return list(devices[:d])
+    return [devices[0]]
+
+
+def _serve_config(h: int, w: int, working_height: int, past: int, future: int,
+                  mode: int, ecc: bool = False):
+    from video_stabilization_tpu_torch.config import ECCConfig, StabilizerConfig
+
+    return StabilizerConfig(
+        past_frames=past,
+        future_frames=future,
+        working_height=working_height,
+        frame_height=h,
+        frame_width=w,
+        static_mode=mode,
+        ecc=ECCConfig(enabled=ecc),
+    )
+
+
+def stabilize_streams_sharded(footage, config, mesh, chunk: int = 8, key=None):
+    """In-memory serving path: footage (S, T, H, W, 3) u8 (a tensor or an
+    array, on any device) -> stabilized (S, T, H, W, 3) u8, validity (S, T)
+    and the carry, on the mesh's device, through the stream-batched offline
+    chunk.  T must be a multiple of ``chunk``; ``key`` is the carry's key
+    words (default ``prng.key(0)``)."""
+    from video_stabilization_tpu_torch.parallel import (
+        init_batched_carry, make_sharded_offline_fn, make_stream_mesh, shard_carry)
+    from video_stabilization_tpu_torch.utils import prng
+
+    if config.static_mode is None:
+        raise ValueError("serving requires config.static_mode")
+    s, t = footage.shape[:2]
+    if t % chunk:
+        raise ValueError(f"frame count {t} not a multiple of chunk {chunk}")
+    if key is None:
+        key = prng.key(0)
+    mesh = make_stream_mesh(mesh)
+    dev = mesh[0]
+    carry = init_batched_carry(config, s, int(config.static_mode), key, dev)
+    carry = shard_carry(carry, mesh)
+    fn = make_sharded_offline_fn(config, mesh)
+    outs, valids = [], []
+    for i in range(0, t, chunk):
+        carry, (out, valid) = fn(carry, torch.as_tensor(footage[:, i:i + chunk]).to(dev))
+        outs.append(out)
+        valids.append(valid)
+    return torch.cat(outs, 1), torch.cat(valids, 1), carry
+
+
+@contextlib.contextmanager
+def _loop_sync_debug(cuda: bool):
+    """:data:`loop_sync_debug` as the sync debug mode of the enclosed loop."""
+    if not (cuda and loop_sync_debug):
+        yield
+        return
+    torch.cuda.set_sync_debug_mode(loop_sync_debug)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+class _Slot:
+    """One set of host buffers of a chunk: the planar YUV it reads into and
+    the outputs and validity it drains from (pinned on the card), and the
+    chunk's events."""
+
+    def __init__(self, s: int, chunk: int, nbytes: int, h: int, w: int, cuda: bool):
+        def host(shape, dtype):
+            t = torch.empty(shape, dtype=dtype)
+            return t.pin_memory() if cuda else t
+
+        self.yuv = host((s, chunk, nbytes), torch.uint8)
+        self.out = host((s, chunk, h, w, 3), torch.uint8)
+        self.valid = host((s, chunk), torch.bool)
+        self.events = None
+
+    def record(self, name: str, cuda: bool) -> None:
+        if cuda:
+            self.events[name] = torch.cuda.Event(enable_timing=True)
+            self.events[name].record()
+
+
+def serve_files(paths: Sequence[str], output_dir: Optional[str], mode,
+                working_height: int = 360, past: int = 60, future: int = 45,
+                chunk: int = 8, max_frames: Optional[int] = None,
+                devices: Optional[Sequence] = None, config=None, log=print):
+    """Stream N Y4M files through the stream-batched pipeline; write
+    per-stream stabilized Y4M files ``stabilized_<name>`` to ``output_dir``
+    (skipped when None).  ``devices`` defaults to every CUDA card (one is
+    ported: more raise, ROADMAP Queue 1 item 15); ``["cpu"]`` runs on the
+    CPU.  Returns (frames_done_per_stream, wall_seconds); :data:`last_run`
+    holds the run's split."""
+    from video_stabilization_tpu_torch.config import StabilizationMode
+    from video_stabilization_tpu_torch.io.native import NativeY4MReader
+    from video_stabilization_tpu_torch.io.video import VideoWriter
+    from video_stabilization_tpu_torch.ops.image import yuv_flat_to_bgr
+    from video_stabilization_tpu_torch.parallel import (
+        init_batched_carry, make_sharded_offline_fn, make_stream_mesh, shard_carry)
+    from video_stabilization_tpu_torch.utils import prng
+
+    readers = [NativeY4MReader(p) for p in paths]
+    sizes = {r.frame_size for r in readers}
+    c420s = {r.is_c420 for r in readers}
+    if len(sizes) != 1 or len(c420s) != 1:
+        raise ValueError(f"all streams must share frame size and chroma mode, got "
+                         f"sizes {sizes}, c420 {c420s}")
+    (h, w), c420 = sizes.pop(), c420s.pop()
+    s = len(readers)
+
+    mesh = make_stream_mesh(pick_serving_devices(make_stream_mesh(devices), s))
+    dev = mesh[0]
+    cuda = dev.type == "cuda"
+    log(f"serving {s} stream(s) of {w}x{h} over {len(mesh)} device(s) ({dev}), chunk {chunk}")
+
+    if isinstance(mode, str):
+        # both the CLI spellings ("smoothing", "orb-lock", ...) and the enum
+        # member names ("GLOBAL_SMOOTHING", ...)
+        from video_stabilization_tpu_torch.cli.args import MODE_NAMES
+
+        mode = StabilizationMode[MODE_NAMES.get(mode, mode.upper())]
+    else:
+        mode = StabilizationMode(mode)
+    if config is not None:                  # test/tuned override
+        cfg = dataclasses.replace(config, frame_height=h, frame_width=w, static_mode=int(mode))
+    else:
+        cfg = _serve_config(h, w, working_height, past, future, int(mode),
+                            ecc=(mode == StabilizationMode.SIFT_FULL_LOCK))
+
+    offline = make_sharded_offline_fn(cfg, mesh)
+    carry = shard_carry(init_batched_carry(cfg, s, int(mode), prng.key(0), dev), mesh)
+
+    writers = None
+    if output_dir is not None:
+        os.makedirs(output_dir, exist_ok=True)
+        writers = [VideoWriter(os.path.join(output_dir, f"stabilized_{os.path.basename(p)}"),
+                               r.fps, (h, w), subsampling="420" if c420 else "444")
+                   for p, r in zip(paths, readers)]
+
+    slots = [_Slot(s, chunk, readers[0].yuv_bytes, h, w, cuda) for _ in range(2)]
+    split = dict(read_s=0.0, queue_s=0.0, wait_s=0.0, write_s=0.0,
+                 h2d_ms=0.0, compute_ms=0.0, d2h_ms=0.0)
+    waits = 0
+
+    def drain(slot: _Slot) -> None:
+        nonlocal waits
+        t0 = time.perf_counter()
+        if cuda:
+            slot.events["copied"].synchronize()       # this chunk only
+            waits += 1
+            ev = slot.events
+            split["h2d_ms"] += ev["start"].elapsed_time(ev["uploaded"])
+            split["compute_ms"] += ev["uploaded"].elapsed_time(ev["computed"])
+            split["d2h_ms"] += ev["computed"].elapsed_time(ev["copied"])
+        t1 = time.perf_counter()
+        if writers is not None:
+            _drain(writers, slot.out.numpy(), slot.valid.numpy())
+        split["wait_s"] += t1 - t0
+        split["write_s"] += time.perf_counter() - t1
+
+    done = 0
+    t_start = time.perf_counter()
+    pending = None                  # the slot of the chunk still in flight
+    i = 0
+    with _loop_sync_debug(cuda):
+        while max_frames is None or done < max_frames:
+            slot = slots[i % 2]
+            t0 = time.perf_counter()
+            blocks = [r.read_yuv_block(chunk, out=slot.yuv[si].numpy())
+                      for si, r in enumerate(readers)]
+            split["read_s"] += time.perf_counter() - t0
+            if any(b is None or len(b) < chunk for b in blocks):
+                break                   # the shortest stream sets the length
+            t0 = time.perf_counter()
+            slot.events = {}
+            slot.record("start", cuda)
+            yuv = slot.yuv.to(dev, non_blocking=True)
+            slot.record("uploaded", cuda)
+            carry, (out, valid) = offline(carry, yuv_flat_to_bgr(yuv, h, w, c420))
+            slot.record("computed", cuda)
+            slot.out.copy_(out, non_blocking=True)
+            slot.valid.copy_(valid, non_blocking=True)
+            slot.record("copied", cuda)
+            split["queue_s"] += time.perf_counter() - t0
+            # drain the PREVIOUS chunk while the card computes this one
+            if pending is not None:
+                drain(pending)
+            pending = slot
+            done += chunk
+            i += 1
+        if pending is not None:
+            drain(pending)
+    dt = time.perf_counter() - t_start
+
+    for r in readers:
+        r.close()
+    if writers is not None:
+        for wr in writers:
+            wr.close()
+    last_run.clear()
+    last_run.update(streams=s, frames=done, chunks=i, chunk=chunk, wall_s=dt,
+                    event_waits=waits, **split)
+    log(f"served {done} frames x {s} streams in {dt:.2f}s "
+        f"({done * s / dt:.1f} aggregate fps)" if done else "no full chunks")
+    return done, dt
+
+
+def _drain(writers, outputs: np.ndarray, valid: np.ndarray) -> None:
+    """Append one chunk's valid frames, (S, K, H, W, 3) and (S, K) on the
+    host, to each stream's writer."""
+    for si, wr in enumerate(writers):
+        for ki in range(outputs.shape[1]):
+            if valid[si, ki]:
+                wr.write(outputs[si, ki])
+
+
+def _render_sim_streams(n_streams, n_frames, h, w, out_dir, device="cuda", log=print):
+    """Simulator footage for ``--simulator`` serving, one shake trajectory
+    per stream (trajectory seed 5 + s, one texture of seed 0), rendered on
+    ``device`` and written as C420 Y4M files into ``out_dir``, so the native
+    ingest path is what gets exercised.  Returns the paths."""
+    from video_stabilization_tpu_torch.io.video import VideoWriter
+    from video_stabilization_tpu_torch.sim import (
+        DEFAULT_APP_PARAMS, make_default_texture, render_frame, shake_trajectory)
+
+    tex = torch.from_numpy(make_default_texture(np.random.default_rng(0), 512)).to(device)
+    paths = []
+    for si in range(n_streams):
+        rng = np.random.default_rng(5 + si)
+        traj = shake_trajectory(rng.standard_normal((n_frames, 3)),
+                                rng.standard_normal(n_frames), DEFAULT_APP_PARAMS,
+                                pos_amplitude=0.004, roll_amplitude=0.3, device=device)
+        path = os.path.join(out_dir, f"stream{si}.y4m")
+        wr = VideoWriter(path, 30.0, (h, w), subsampling="420")
+        for i in range(n_frames):
+            wr.write(render_frame(tex, traj[i], h, w).cpu().numpy())
+        wr.close()
+        paths.append(path)
+    log(f"rendered {n_streams} simulator streams x {n_frames} frames -> {out_dir}")
+    return paths
+
+
+def main(argv=None, device="cuda", keep_inputs: bool = False):
+    """The command line.  Runs on ``device`` (the card unless the caller
+    names the CPU).  ``--simulator`` streams are rendered into a temporary
+    directory, removed at the end unless ``keep_inputs`` (its paths are then
+    in ``last_run["inputs"]``)."""
+    ap = argparse.ArgumentParser(
+        prog="python -m video_stabilization_tpu_torch.serve",
+        description="Multi-stream stabilization serving on a CUDA card.")
+    src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("--files", nargs="+", help="input Y4M files, one per stream")
+    src.add_argument("--simulator", type=int, metavar="N",
+                     help="serve N synthetic simulator streams")
+    ap.add_argument("--mode", default="smoothing",
+                    choices=["smoothing", "accumulated", "orb", "sift",
+                             "translation", "rotation"])
+    ap.add_argument("--output-dir", default=None,
+                    help="write stabilized_<name>.y4m per stream here")
+    ap.add_argument("--working-height", type=int, default=360)
+    ap.add_argument("--past-window", type=float, default=2.0,
+                    help="seconds (reference default, src/main_utils.hpp:25)")
+    ap.add_argument("--future-window", type=float, default=1.5)
+    ap.add_argument("--fps", type=float, default=30.0,
+                    help="fps used to size the temporal window")
+    ap.add_argument("--chunk", type=int, default=8)
+    ap.add_argument("--frames", type=int, default=None,
+                    help="stop after this many frames per stream")
+    ap.add_argument("--sim-size", default="1920x1080",
+                    help="WxH of --simulator streams")
+    args = ap.parse_args(argv)
+
+    mode_map = {"smoothing": "GLOBAL_SMOOTHING",
+                "accumulated": "ACCUMULATED_FULL_LOCK",
+                "orb": "ORB_FULL_LOCK", "sift": "SIFT_FULL_LOCK",
+                "translation": "TRANSLATION_LOCK",
+                "rotation": "ROTATION_LOCK"}
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"serve: device {str(device)!r} requested but CUDA is not available")
+    paths = args.files
+    sim_dir = None
+    if paths is None:
+        w, h = (int(x) for x in args.sim_size.split("x"))
+        sim_dir = tempfile.mkdtemp(prefix="vstab_serve_")
+        paths = _render_sim_streams(args.simulator, args.frames or 64, h, w, sim_dir, device)
+
+    past = max(1, int(round(args.past_window * args.fps)))
+    future = max(0, int(round(args.future_window * args.fps)))
+    try:
+        serve_files(paths, args.output_dir, mode_map[args.mode],
+                    working_height=args.working_height, past=past, future=future,
+                    chunk=args.chunk, max_frames=args.frames, devices=[device])
+    finally:
+        if sim_dir is not None and not keep_inputs:
+            shutil.rmtree(sim_dir, ignore_errors=True)
+    if keep_inputs:
+        last_run["inputs"] = list(paths)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,14 +2,15 @@
 
 Port of ``video_stabilization_tpu/sim/camera_engine.py``: a pinhole camera
 over an infinitely tiled textured floor (z = 0) with sky above the horizon,
-rendered on whatever device the texture lives on, and the exact inter-frame
-homography the floor induces between two poses.  Angles are degrees; R =
+rendered on whatever device the texture lives on, the demo app's movement
+and roll controls, and the exact inter-frame homography the floor induces
+between two poses.  Angles are degrees; R =
 Rz(roll)·Rx(tilt)·Ry(pan) maps camera to world.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -98,8 +99,50 @@ def render_frame(texture: torch.Tensor, params: CameraParams, height: int,
     iy = (tex_v * th).to(torch.int32).clamp(0, th - 1).long()
 
     floor_bgr = texture[iy, ix]
-    sky_bgr = torch.tensor(SKY_COLOR_BGR, dtype=torch.uint8, device=dev)
+    # a constant goes up without a blocking copy (a pageable source is
+    # staged by the CUDA runtime before the call returns)
+    sky_bgr = torch.tensor(SKY_COLOR_BGR, dtype=torch.uint8).to(dev, non_blocking=True)
     return torch.where(sky[..., None], sky_bgr, floor_bgr)
+
+
+# --- Movement (pure functions: params -> params) ----------------------------
+# Column 2 of R is the camera's forward axis, column 0 its right axis, and
+# column 1 points down (so "up" is its negation).
+
+def _axis(params: CameraParams, col: int) -> torch.Tensor:
+    return rotation_matrix(params.pan, params.tilt, params.roll)[:, col]
+
+
+def move_forward(params: CameraParams, amount, move_speed=0.1) -> CameraParams:
+    return replace(params, position=params.position + _axis(params, 2) * (amount * move_speed))
+
+
+def move_backward(params: CameraParams, amount, move_speed=0.1) -> CameraParams:
+    return replace(params, position=params.position - _axis(params, 2) * (amount * move_speed))
+
+
+def move_right(params: CameraParams, amount, move_speed=0.1) -> CameraParams:
+    return replace(params, position=params.position + _axis(params, 0) * (amount * move_speed))
+
+
+def move_left(params: CameraParams, amount, move_speed=0.1) -> CameraParams:
+    return replace(params, position=params.position - _axis(params, 0) * (amount * move_speed))
+
+
+def move_up(params: CameraParams, amount, move_speed=0.1) -> CameraParams:
+    return replace(params, position=params.position - _axis(params, 1) * (amount * move_speed))
+
+
+def move_down(params: CameraParams, amount, move_speed=0.1) -> CameraParams:
+    return replace(params, position=params.position + _axis(params, 1) * (amount * move_speed))
+
+
+def roll_clockwise(params: CameraParams, amount, roll_speed=2.0) -> CameraParams:
+    return replace(params, roll=params.roll - amount * roll_speed)
+
+
+def roll_counterclockwise(params: CameraParams, amount, roll_speed=2.0) -> CameraParams:
+    return replace(params, roll=params.roll + amount * roll_speed)
 
 
 def plane_to_pixel_homography(params: CameraParams, height: int, width: int) -> torch.Tensor:

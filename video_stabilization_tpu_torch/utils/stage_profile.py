@@ -72,6 +72,82 @@ def _stage_device_events(prof) -> dict:
     return counts
 
 
+# the reference's printTimings taxonomy (src/stabilizer.cpp:982-1009) over
+# the top-level stages of the streaming step and the chunk body; the stages
+# nested in them (lock_detect, orb_detect, match, ecc, ...) are not listed,
+# so nothing counts twice
+REFERENCE_TAXONOMY = {
+    "gftt": "goodFeaturesToTrack",
+    "lk_track": "calcOpticalFlowPyrLK",
+    "lk": "calcOpticalFlowPyrLK",
+    "inter_frame_fit": "estimateAffinePartial2D",
+    "fit": "estimateAffinePartial2D",
+    "warp": "warpPerspective",
+    "gray": "resize+cvtColor+pyramid",
+    "pyramid": "resize+cvtColor+pyramid",
+    "gray_pyramid": "resize+cvtColor+pyramid",
+    "smoothing": "smoothing window",
+    "orb_lock": "lock transform",
+    "sift_lock": "lock transform",
+    "lock": "lock transform",
+    "rotation_split": "rotation split",
+}
+
+
+def profile_stages(run, device, n_calls: int = 1) -> dict:
+    """Run ``run()`` (``n_calls`` step calls on ``device``) under
+    ``torch.profiler`` with the stage ranges on, and return ms per call:
+    ``{stage: ms}`` for the stages of :data:`REFERENCE_TAXONOMY`, plus
+    "total" and "other" (the rest of "total").  On the card the times are
+    device times (the kernels launched inside each range, and all kernels
+    for "total"); on the CPU, host times (the wall of ``run`` for
+    "total")."""
+    global enabled
+    cuda = torch.device(device).type == "cuda"
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    enabled = True
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            run()
+            if cuda:
+                torch.cuda.synchronize(device)
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        enabled = False
+    events = prof.key_averages()
+    out = {}
+    for e in events:
+        name = e.key[6:] if e.key.startswith("stage:") else None
+        if name in REFERENCE_TAXONOMY and e.device_type == torch.autograd.DeviceType.CPU:
+            us = e.device_time_total if cuda else e.cpu_time_total
+            out[name] = us / 1e3 / n_calls
+    if cuda:
+        total = sum(_device_us(e) for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.key.startswith("stage:")) / 1e3 / n_calls
+    else:
+        total = wall_ms / n_calls
+    out["total"] = total
+    out["other"] = max(total - sum(v for k, v in out.items() if k != "total"), 0.0)
+    return out
+
+
+def format_taxonomy(stage_ms: dict) -> str:
+    """One line in the printTimings style from :func:`profile_stages`."""
+    by_label: dict = {}
+    for name, ms in stage_ms.items():
+        if name in REFERENCE_TAXONOMY:
+            label = REFERENCE_TAXONOMY[name]
+            by_label[label] = by_label.get(label, 0.0) + ms
+    parts = [f"{label}: {ms:.2f} ms" for label, ms in by_label.items() if ms > 0.0]
+    parts.append(f"other: {stage_ms.get('other', 0.0):.2f} ms")
+    parts.append(f"total: {stage_ms.get('total', 0.0):.2f} ms")
+    return " | ".join(parts)
+
+
 def card_line() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
