@@ -74,7 +74,25 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    ``--checkpoint`` and ``--stats``, again with ``--resume`` (frame counter
    192), once more in ``--mode orb-lock``; each file against
    ``Stabilizer.stabilize_frame`` on the same frames, launches and host
-   syncs per frame, the loop's ms/frame beside the Stabilizer's alone.
+   syncs per frame, the loop's ms/frame beside the Stabilizer's alone;
+12. every motion model, the referee and the app's flags at config 1's size
+   (run after phase 8, on the config-1 slice's footage): 12a, 32
+   GLOBAL_SMOOTHING frames with ``motion_model`` similarity, affine and
+   homography (warp launches 5 / 5 / 4 per frame, 0 host syncs per steady
+   frame, drift and jitter under the slice's bounds, ms/frame, device
+   events per frame); 12b, the offline chunk (K = 16) with affine and with
+   homography against 12a's streaming runs (5 and 4 launches per chunk);
+   12c, the referee, 24 frames each of ``bench.py::compat_drift``'s
+   configuration (the host-estimator split; 1 warp launch per frame) and
+   ``production_drift``'s (5), with drift, host reads and syncs per frame
+   by source line (only in the named host stages), ms/frame, and the exact
+   u8 gray on the card against the CPU's; 12d (after phase 11), the app
+   with ``--trail``, ``--motion-model homography`` and
+   ``--reference-compat``, 60 frames each, against the ``Stabilizer``;
+   12e, the device time of the plain PyTorch ops of these paths (the
+   perspective and shear warps, the trail, the DLT and affine fits,
+   cv2exact LK and its patch extraction, cv2's exact corner list and its
+   greedy fixpoint).
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -103,7 +121,12 @@ _LK_WARPS = {(1, 90, 160): 1, (1, 180, 320): 1, (1, 360, 640): 2}
 WARPS_PER_FRAME = {"config1": {**_LK_WARPS, (3, 1080, 1920): 1},
                    "config3": {**_LK_WARPS, (3, 720, 1280): 1},
                    "config4": {**_LK_WARPS, (1, 360, 640): 2 + ECC_ITERS + 2,
-                               (3, 1080, 1920): 1}}
+                               (3, 1080, 1920): 1},
+                   # phase 12: the homography model's output goes through
+                   # warp_perspective (dense LK's warps only); the referee
+                   # with per-point LK warps only its output
+                   "config1_lk_only": dict(_LK_WARPS),
+                   "output_only": {(3, 1080, 1920): 1}}
 SHAPES = sorted({s for warps in WARPS_PER_FRAME.values() for s in warps})
 # one launch per warp, whichever branch the device takes
 LAUNCHES_PER_FRAME = {k: sum(v.values()) for k, v in WARPS_PER_FRAME.items()}
@@ -162,6 +185,7 @@ BATCHED_PATHS = {
     "offline_config4": (OFFLINE_CHUNK, OFFLINE_CHUNK, WARPS_PER_FRAME["config1"]),
     "config5": (N_STREAMS, 1, WARPS_PER_FRAME["config1"]),
     "offline_config5": (N_STREAMS * STREAM_CHUNK, STREAM_CHUNK, WARPS_PER_FRAME["config1"]),
+    "offline_config1_lk_only": (OFFLINE_CHUNK, OFFLINE_CHUNK, _LK_WARPS),
 }
 ECC_WARPS = {(1, 360, 640): ECC_ITERS + 2}   # per frame at config 4, single launches
 # phase 10: serve.main at bench config 5's size; a short ORB run for the
@@ -1606,6 +1630,418 @@ def phase_app(seed: int, dev, card: str) -> dict:
     return runs
 
 
+# phase 12: every motion model, the referee and the app's flags, at config
+# 1's size (1080x1920 frames, working height 360, window 30 + 1 + 15)
+MODEL_FRAMES = 32        # GLOBAL_SMOOTHING frames per motion model (12a, 12b)
+REFEREE_FRAMES = 24      # frames per referee configuration (12c)
+APP_FLAG_FRAMES = 60     # app frames per flag (12d): 15 written past the 45-frame buffer
+STEADY_FROM = 8          # frames before the timed, sync-checked steady ones
+MODEL_PATHS = {"similarity": "config1", "affine": "config1", "homography": "config1_lk_only"}
+# the referee's named host stages: the host-estimator split and host GFTT
+# (engine/stabilizer.py, Stabilizer._host_motion / _inject_host_corners) and
+# cv2exact GFTT's fixpoint check (ops/gftt.py, _greedy_cv2exact)
+REFEREE_HOST_STAGES = ("engine/stabilizer.py", "ops/gftt.py")
+
+
+def quality_of(frames, traj, outs, est, cfg) -> dict:
+    """Corner drift of the estimated inter-frame transforms ``est`` (frames
+    1 ..) against the analytic motion, and the jitter of the stabilized
+    ``outs`` against the raw frames they present (from frame 2 on)."""
+    from video_stabilization_tpu_torch.sim import inter_frame_homography
+
+    n = len(frames)
+    wh, ww = cfg.working_size
+    hf, wf = cfg.frame_height, cfg.frame_width
+    delay = cfg.future_frames
+    traj = traj.to("cpu")
+    hs_est = [h.double().cpu().numpy() for h in est[1:n]]
+    hs_true = [inter_frame_homography(traj[i], traj[i + 1], wh, ww).double().numpy()
+               for i in range(n - 1)]
+    crop = (slice(hf // 4, 3 * hf // 4), slice(wf // 4, 3 * wf // 4))
+    j_raw = jitter(frames[2:n - delay], crop)
+    j_out = jitter(torch.stack(outs[2 + delay:n]), crop)
+    return {"drift": corner_drift(hs_est, hs_true, ww, wh), "j_raw": j_raw,
+            "j_out": j_out, "ratio": j_out / j_raw}
+
+
+def phase_models(cfg, seed: int, dev, card: str, stream: dict) -> dict:
+    """Phase 12a-b: every motion model at config 1's size.  12a: the first
+    MODEL_FRAMES frames of the config-1 slice's footage in GLOBAL_SMOOTHING
+    through ``Stabilizer.stabilize_frame`` with ``motion_model``
+    similarity, affine and homography: warp launches per frame (5 / 5 / 4:
+    the homography model warps its output by ``warp_perspective``), host
+    syncs of one steady frame, corner drift against the analytic motion,
+    jitter, ms/frame and device events per frame.  12b: the offline chunk
+    (K = OFFLINE_CHUNK) with affine and with homography over the same
+    frames: launches per chunk (5 and 4), host syncs of the warm-up chunk,
+    outputs against 12a's streaming run frame by frame."""
+    import dataclasses
+
+    from video_stabilization_tpu_torch.config import StabilizationMode
+    from video_stabilization_tpu_torch.engine import Stabilizer, init_carry, make_offline_fn
+    from video_stabilization_tpu_torch.ops import affine_warp as aw
+    from video_stabilization_tpu_torch.utils import prng
+
+    mode = StabilizationMode.GLOBAL_SMOOTHING
+    all_frames, traj = stream["footage"]
+    frames = all_frames[:MODEL_FRAMES]
+    counter = aw.fallback_counter(dev)
+    size = (f"{cfg.frame_height}x{cfg.frame_width} -> working "
+            f"{cfg.working_size[0]}x{cfg.working_size[1]}")
+    runs = {}
+    for model, path in MODEL_PATHS.items():
+        mcfg = dataclasses.replace(cfg, ransac=dataclasses.replace(cfg.ransac,
+                                                                   motion_model=model))
+        stab = Stabilizer(mcfg, mode, seed=seed, device=dev)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        counter.zero_()
+        aw.launches = 0
+        outs, est, syncs = [], [], []
+        for i, f in enumerate(frames):
+            if i == STEADY_FROM:
+                torch.cuda.synchronize()
+                ev0.record()
+            if i == STEADY_FROM - 1:
+                out, syncs = count_syncs(lambda: stab.stabilize_frame(f))
+            else:
+                out = stab.stabilize_frame(f)
+            outs.append(out)
+            est.append(stab.carry.transforms[-1].clone())
+        ev1.record()
+        torch.cuda.synchronize()
+        launches, fallbacks = aw.launches, int(counter)
+        ms_frame = ev0.elapsed_time(ev1) / (MODEL_FRAMES - STEADY_FROM)
+        events = device_events(lambda: stab.stabilize_frame(frames[-1]))
+        q = quality_of(frames, traj, outs, est, mcfg)
+        per_frame = LAUNCHES_PER_FRAME[path]
+        print(f"models {model}: {MODEL_FRAMES} GLOBAL_SMOOTHING frames {size}; warp launches {launches} ({launches / MODEL_FRAMES:.2f}/frame, "
+              f"want {per_frame}), warps outside the envelope {fallbacks} (device count), "
+              f"envelope violations {int(stab.carry.envelope_violations)}", flush=True)
+        print(f"models {model}: inter-frame corner drift {q['drift']:.4f} px (< {DRIFT_TOL}); "
+              f"jitter raw {q['j_raw']:.3f} smoothed {q['j_out']:.3f} (ratio "
+              f"{q['ratio']:.3f} < {SMOOTH_JITTER}); {ms_frame:.3f} ms/frame (CUDA events, "
+              f"{MODEL_FRAMES - STEADY_FROM} steady frames); {events} device events per frame "
+              f"(torch.profiler); {card}", flush=True)
+        report_syncs(f"models {model}", syncs)
+        if launches != per_frame * MODEL_FRAMES:
+            raise AssertionError(f"models {model}: {launches} warp launches")
+        if syncs:
+            raise AssertionError(f"models {model}: the step synchronized the host: {syncs}")
+        if not (q["drift"] < DRIFT_TOL and q["ratio"] < SMOOTH_JITTER):
+            raise AssertionError(f"models {model}: outside the slice's bounds: {q}")
+        runs[model] = {"launches": launches, "frames": MODEL_FRAMES, "ms_frame": ms_frame,
+                       "syncs": len(syncs), "events_per_frame": events, **q}
+        if model != "similarity":
+            runs[model]["outs"] = outs
+        del stab, outs
+
+    # 12b: the offline chunk with the affine and the homography model
+    k = OFFLINE_CHUNK
+    for model in ("affine", "homography"):
+        ocfg = dataclasses.replace(cfg, static_mode=int(mode),
+                                   ransac=dataclasses.replace(cfg.ransac, motion_model=model))
+        step = make_offline_fn(ocfg)
+        carry = init_carry(ocfg, int(mode), prng.key(seed), dev)
+        per_chunk = BATCHED_LAUNCHES - (model == "homography")
+        aw.launches = 0
+        outs = []
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        for c, i in enumerate(range(0, MODEL_FRAMES, k)):
+            if c == 0:
+                (carry, (out, _)), syncs = count_syncs(lambda: step(carry, frames[i:i + k]))
+                torch.cuda.synchronize()
+                ev0.record()
+            else:
+                carry, (out, _) = step(carry, frames[i:i + k])
+            outs.append(out)
+        ev1.record()
+        torch.cuda.synchronize()
+        launches = aw.launches
+        n_chunks = MODEL_FRAMES // k
+        ms_frame = ev0.elapsed_time(ev1) / (MODEL_FRAMES - k)
+        diff = (torch.cat(outs).to(torch.int16)
+                - torch.stack(runs[model].pop("outs")).to(torch.int16)).abs()
+        differ = float((diff > 0).float().mean((1, 2, 3)).max())
+        off_more = float((diff > 1).float().mean((1, 2, 3)).max())
+        print(f"models offline {model}: {MODEL_FRAMES} frames in chunks of {k}; warp launches "
+              f"{launches} ({per_chunk}/chunk); vs the streaming run per frame at most "
+              f"{differ:.5f} of pixels differ (<= {OFFLINE_DIFFER}), {off_more:.6f} by more "
+              f"than one level (<= {OFFLINE_OFF_BY_MORE}); {ms_frame:.3f} ms/frame (CUDA "
+              f"events, the chunks after the warm-up one); {card}", flush=True)
+        report_syncs(f"models offline {model}", syncs, "chunk (the warm-up one, untimed)")
+        if launches != per_chunk * n_chunks or syncs:
+            raise AssertionError(f"models offline {model}: {launches} launches, syncs {syncs}")
+        if not (differ <= OFFLINE_DIFFER and off_more <= OFFLINE_OFF_BY_MORE):
+            raise AssertionError(f"models offline {model}: outputs differ from streaming: "
+                                 f"{differ}, {off_more}")
+        runs[f"offline_{model}"] = {"launches": launches, "frames": MODEL_FRAMES,
+                                    "ms_frame": ms_frame, "syncs": len(syncs)}
+        del outs, diff
+    return runs
+
+
+def phase_referee(cfg, seed: int, dev, card: str, stream: dict) -> dict:
+    """Phase 12c: the reference-compat referee at config 1's size, the first
+    REFEREE_FRAMES frames of the config-1 slice's footage (on the card)
+    through ``Stabilizer.stabilize_frame`` in GLOBAL_SMOOTHING:
+    ``bench.py::compat_drift``'s configuration (reference_compat, cv2exact
+    LK, host GFTT of 1300 corners, cv2exact RANSAC: the host-estimator
+    split) and ``production_drift``'s (reference_compat alone: cv2's exact
+    corner list on the card).  Per configuration: corner drift against the
+    analytic motion, warp launches per frame (1 and 5), host reads and host
+    syncs per steady frame by source line (all in the named host stages),
+    ms/frame (host clock: the host stages run there), and the exact u8
+    gray on the card against the same function on this machine's CPU."""
+    import dataclasses
+
+    from video_stabilization_tpu_torch.config import (
+        GFTTConfig, LKConfig, RansacConfig, StabilizationMode)
+    from video_stabilization_tpu_torch.engine import Stabilizer
+    from video_stabilization_tpu_torch.ops import affine_warp as aw
+    from video_stabilization_tpu_torch.ops.image import gray_u8_cv2exact
+
+    all_frames, traj = stream["footage"]
+    frames = all_frames[:REFEREE_FRAMES]
+    wh, ww = cfg.working_size
+    gray_equal = sum(torch.equal(gray_u8_cv2exact(f, wh, ww).cpu(),
+                                 gray_u8_cv2exact(f.cpu(), wh, ww)) for f in frames)
+    plans = {
+        "compat_drift": (dataclasses.replace(
+            cfg, reference_compat=True, lk=LKConfig(method="cv2exact"),
+            gftt=GFTTConfig(max_features=1300, selection="host"),
+            ransac=RansacConfig(method="cv2exact"),
+            static_mode=int(StabilizationMode.GLOBAL_SMOOTHING)), "output_only"),
+        "production_drift": (dataclasses.replace(cfg, reference_compat=True), "config1"),
+    }
+    runs = {}
+    for name, (rcfg, path) in plans.items():
+        stab = Stabilizer(rcfg, StabilizationMode.GLOBAL_SMOOTHING, seed=seed, device=dev)
+        aw.launches = 0
+        outs, est, syncs = [], [], []
+        reads0 = 0
+        for i, f in enumerate(frames):
+            if i == STEADY_FROM:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                reads0 = stab.host_reads
+            if i >= STEADY_FROM:
+                out, caught = count_syncs(lambda: stab.stabilize_frame(f))
+                syncs += caught
+            else:
+                out = stab.stabilize_frame(f)
+            outs.append(out)
+            est.append(stab.carry.transforms[-1].clone())
+        torch.cuda.synchronize()
+        steady = REFEREE_FRAMES - STEADY_FROM
+        ms_frame = 1e3 * (time.perf_counter() - t0) / steady
+        launches = aw.launches
+        q = quality_of(frames, traj, outs, est, rcfg)
+        named = {}
+        for x in syncs:
+            named[x] = named.get(x, 0) + 1
+        reads = (stab.host_reads - reads0) / steady
+        per_frame = LAUNCHES_PER_FRAME[path]
+        print(f"referee {name}: {REFEREE_FRAMES} frames {cfg.frame_height}x{cfg.frame_width} "
+              f"-> working {wh}x{ww}; warp launches {launches} ({launches / REFEREE_FRAMES:.2f}/frame, want {per_frame}); "
+              f"inter-frame corner drift {q['drift']:.4f} px (< {DRIFT_TOL}); jitter ratio "
+              f"{q['ratio']:.3f}; last inliers {int(stab.carry.last_inliers)}", flush=True)
+        print(f"referee {name}: per steady frame {reads:.2f} host reads "
+              f"(Stabilizer.host_reads) and {len(syncs) / steady:.2f} host syncs under "
+              f"set_sync_debug_mode('warn'), by source line {named}; {ms_frame:.3f} ms/frame "
+              f"(host clock, {steady} steady frames, the sync check on); exact u8 gray on the "
+              f"card equal to the CPU's on {gray_equal} of {REFEREE_FRAMES} frames; {card}",
+              flush=True)
+        stray = [x for x in syncs if not any(h in x for h in REFEREE_HOST_STAGES)]
+        if launches != per_frame * REFEREE_FRAMES:
+            raise AssertionError(f"referee {name}: {launches} warp launches")
+        if stray:
+            raise AssertionError(f"referee {name}: syncs outside the named host stages: {stray}")
+        if not q["drift"] < DRIFT_TOL:
+            raise AssertionError(f"referee {name}: corner drift {q['drift']}")
+        runs[name] = {"launches": launches, "frames": REFEREE_FRAMES, "ms_frame": ms_frame,
+                      "reads_per_frame": reads, "syncs_per_frame": len(syncs) / steady,
+                      "syncs_by_line": named, **q}
+        del stab, outs
+    if gray_equal != REFEREE_FRAMES:
+        raise AssertionError(f"referee: the card's exact gray differs on "
+                             f"{REFEREE_FRAMES - gray_equal} frames")
+    return runs
+
+
+def phase_plain_ops(dev, rng, card: str) -> dict:
+    """Phase 12e: the device time of the plain PyTorch ops that the new
+    paths run outside the warp kernel, at the main path's shapes:
+    ``warp_perspective`` of a 1080x1920x3 frame (the homography model's
+    output warp), ``warp_affine_shear`` and ``copy_feathered`` of one (the
+    trail), the DLT homography fit and the affine fit of 1280
+    correspondences (the homography model's eigenvector by repeated
+    squaring), one per-point patch extraction of cv2exact LK (1300 windows
+    of 21x21 at 360x640), and, with their host reads, cv2exact LK over four
+    levels, cv2's exact corner list and its greedy fixpoint alone (6144
+    candidates at 360x640).  CUDA-graph replay where the op reads nothing
+    back, else CUDA events around back-to-back calls; device events per
+    call by ``torch.profiler``."""
+    from video_stabilization_tpu_torch.config import GFTTConfig, LKConfig
+    from video_stabilization_tpu_torch.models import fit_affine_masked, fit_homography_dlt
+    from video_stabilization_tpu_torch.ops import gftt
+    from video_stabilization_tpu_torch.ops.compositing import copy_feathered
+    from video_stabilization_tpu_torch.ops.image import gray_u8_cv2exact
+    from video_stabilization_tpu_torch.ops.lk import _extract_patches, lk_track, reflect_pad
+    from video_stabilization_tpu_torch.ops.pyramid import build_pyramid
+    from video_stabilization_tpu_torch.ops.warp import warp_affine_shear, warp_perspective
+    from video_stabilization_tpu_torch.sim import (
+        DEFAULT_APP_PARAMS, make_default_texture, render_frame)
+
+    tex = torch.from_numpy(make_default_texture(np.random.default_rng(0), 512)).to(dev)
+    frame = render_frame(tex, DEFAULT_APP_PARAMS, 1080, 1920)
+    ff = frame.float()
+    border = 0.5 * ff.mean((0, 1))
+    h = torch.from_numpy(rigid(2.0, 3.5, -2.25)).to(dev)
+    hp = h.clone()
+    hp[2, 0], hp[2, 1] = 1e-5, -2e-5
+    gray = gray_u8_cv2exact(frame, 360, 640)
+    pyr = build_pyramid(gray, 3)
+    pyr2 = build_pyramid(torch.roll(gray, (1, 2), (0, 1)), 3)
+    n_pts = 1300
+    pts = torch.from_numpy(rng.uniform([12, 12], [628, 348], (n_pts, 2))
+                           .astype(np.float32)).to(dev)
+    src = torch.from_numpy(rng.uniform(0, 640, (1280, 2)).astype(np.float32)).to(dev)
+    dst = src @ h[:2, :2].T + h[:2, 2] + torch.randn(src.shape, device=dev) * 0.3
+    w = torch.ones(1280, device=dev)
+    padded = reflect_pad(pyr[0], 23)
+    resp = gftt.min_eig_response(gray)
+    cand = torch.where(resp > 0.01 * resp.max(), gftt._nms3(resp), -torch.inf)
+    cand[0, :] = cand[-1, :] = cand[:, 0] = cand[:, -1] = -torch.inf
+    top, idx = gftt.top_k_stable(cand.flatten(), 6144)
+    cpts = torch.stack([(idx % 640).float(), (idx // 640).float()], -1)
+    valid = torch.isfinite(top)
+    cv2lk = LKConfig(method="cv2exact")
+    exact = GFTTConfig(max_features=1280, selection="cv2exact")
+    graph_ops = {
+        "warp_perspective 1080x1920x3": lambda: warp_perspective(ff, hp, None, border),
+        "warp_affine_shear 1080x1920x3": lambda: warp_affine_shear(ff, h, border),
+        "copy_feathered 1080x1920x3": lambda: copy_feathered(ff, ff, h),
+        "fit_homography_dlt 1280 points": lambda: fit_homography_dlt(src, dst, w),
+        "fit_affine_masked 1280 points": lambda: fit_affine_masked(src, dst, w),
+        "cv2exact LK patch extraction 1300 x 21x21": lambda: _extract_patches(
+            padded, pts - 10.0 + 23.0, 21),
+    }
+    event_ops = {
+        "cv2exact LK, 4 levels, 1300 points": lambda: lk_track(
+            pyr, pyr2, pts, torch.ones(n_pts, dtype=torch.bool, device=dev), cv2lk),
+        "cv2exact GFTT 360x640": lambda: gftt.good_features_to_track(gray, exact),
+        "greedy fixpoint, 6144 candidates": lambda: gftt._greedy_cv2exact(
+            cpts, top, valid, 10.0 * 360 / 720, 1280),
+    }
+    out = {}
+    for name, fn in graph_ops.items():
+        ms = device_ms(fn, n=10)
+        ev = device_events(fn)
+        out[name] = {"device_ms": ms, "events": ev}
+        print(f"plain op {name}: {ms:.4f} ms device (CUDA graph of 10 calls), {ev} device "
+              f"events per call; {card}", flush=True)
+    for name, fn in event_ops.items():
+        ms = time_ms(fn, reps=5, inner=2, warmup=1)
+        _, syncs = count_syncs(fn)
+        ev = device_events(fn)
+        out[name] = {"ms": ms, "events": ev, "syncs": len(syncs)}
+        print(f"plain op {name}: {ms:.4f} ms per call back to back (CUDA events, host "
+              f"included), {ev} device events and {len(syncs)} host syncs per call; {card}",
+              flush=True)
+    return out
+
+
+def phase_app_flags(seed: int, dev, card: str) -> dict:
+    """Phase 12d: ``cli.app.main --simulator --no-display`` at its defaults
+    (720x1280, working height 360, window 60 + 1 + 45) with ``--trail``,
+    ``--motion-model homography`` and ``--reference-compat`` in turn,
+    APP_FLAG_FRAMES frames each (15 written past the sync buffer).  Each
+    file against ``Stabilizer.stabilize_frame`` of that configuration on
+    the same simulator frames: equal for the motion model and the referee,
+    and for the trail every composite differs from the plain output.  Warp
+    launches and host syncs per frame in the loop."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from video_stabilization_tpu_torch.cli import app
+    from video_stabilization_tpu_torch.config import StabilizationMode, StabilizerConfig
+    from video_stabilization_tpu_torch.engine import Stabilizer
+    from video_stabilization_tpu_torch.io import SimulatorSource
+    from video_stabilization_tpu_torch.ops import affine_warp as aw
+
+    base = StabilizerConfig(frame_height=720, frame_width=1280, working_height=360,
+                            past_frames=60, future_frames=45)
+    plans = {
+        "trail": (["--trail"], base, "config3", False),
+        "homography": (["--motion-model", "homography"],
+                       dataclasses.replace(base, ransac=dataclasses.replace(
+                           base.ransac, motion_model="homography")), "config1_lk_only", True),
+        "compat": (["--reference-compat"], dataclasses.replace(base, reference_compat=True),
+                   "config3", True),
+    }
+    tmp = tempfile.mkdtemp(prefix="smoke_app12_")
+    runs = {}
+    try:
+        for name, (extra, cfg, path, equal) in plans.items():
+            out = os.path.join(tmp, f"{name}.y4m")
+            argv = ["--simulator", "--no-display", "--max-frames", str(APP_FLAG_FRAMES),
+                    "--output", out] + extra
+            aw.launches = 0
+            app.loop_sync_debug = "warn"
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                try:
+                    app.main(argv, device=dev)
+                finally:
+                    app.loop_sync_debug = None
+            run = dict(app.last_run, warp=aw.launches, syncs=loop_syncs(caught))
+            got = y4m_raw_frames(out)
+            src = SimulatorSource(device=dev)
+            stab = Stabilizer(cfg, StabilizationMode.GLOBAL_SMOOTHING, device=dev)
+            ref = [stab.stabilize_frame(src.read_tensor()) for _ in range(APP_FLAG_FRAMES)]
+            want = encoded([f.cpu().numpy() for f in ref[cfg.future_frames:]], False)
+            run["same"] = sum(g == w_ for g, w_ in zip(got, want))
+            run["written_file"] = len(got)
+            run["want"] = len(want)
+            if name == "trail":
+                d = [np.abs(np.frombuffer(g, np.uint8).astype(np.int16)
+                            - np.frombuffer(w_, np.uint8).astype(np.int16)).mean()
+                     for g, w_ in zip(got, want)]
+                run["mean_abs_vs_plain"] = float(np.mean(d))
+            lines = sorted(set(run["syncs"]))
+            shown = " ".join(os.path.basename(a) if a.startswith(tmp) else a for a in argv)
+            print(f"app12 {name}: cli.app.main {shown}: "
+                  f"{run['frames']} frames, {run['written']} written ({len(got)} in the file); "
+                  f"equal to the Stabilizer's outputs on {run['same']} of {len(want)}"
+                  + (f" (mean |trail - plain| {run['mean_abs_vs_plain']:.2f} levels)"
+                     if name == "trail" else "")
+                  + f"; warp launches {run['warp']} ({run['warp'] / run['frames']:.2f}/frame); "
+                  f"host syncs in the loop {len(run['syncs'])} "
+                  f"({len(run['syncs']) / run['frames']:.2f}/frame) at {lines}; loop "
+                  f"{run['ms_per_frame']:.3f} ms/frame; {card}", flush=True)
+            want_written = APP_FLAG_FRAMES - cfg.future_frames
+            if not (run["written"] == len(got) == len(want) == want_written):
+                raise AssertionError(f"app12 {name}: written {run['written']} / {len(got)}")
+            if run["same"] != (want_written if equal else 0):
+                raise AssertionError(f"app12 {name}: {run['same']} frames equal the "
+                                     f"Stabilizer's")
+            if run["warp"] != LAUNCHES_PER_FRAME[path] * APP_FLAG_FRAMES:
+                raise AssertionError(f"app12 {name}: {run['warp']} warp launches")
+            bad = [x for x in run["syncs"] if "affine_warp.py" in x]
+            if bad:
+                raise AssertionError(f"app12 {name}: the warp wrapper synchronized: {bad}")
+            run["path"] = path
+            runs[name] = run
+            del ref, stab
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1668,6 +2104,9 @@ def main() -> int:
                          SIFT_OFFLINE_FRAMES, args.seed, dev, card, sift,
                          f" (the first {SIFT_OFFLINE_FRAMES} of the slice's {SIFT_FRAMES}: "
                          "a depth cut that keeps the smoke within its time)")
+    models = phase_models(cfg1, args.seed, dev, card, sl)
+    referee = phase_referee(cfg1, args.seed, dev, card, sl)
+    phase_plain_ops(dev, rng, card)
     for run in (sl, orb, sift):       # the streaming slices' footage is done with
         run.pop("footage")
         run.pop("outs")
@@ -1676,6 +2115,7 @@ def main() -> int:
     streams = phase_streams(cfg5, args.seed, dev, card)
     served = phase_serve(args.seed, dev, card)
     apps = phase_app(args.seed, dev, card)
+    app_flags = phase_app_flags(args.seed, dev, card)
 
     # launches: each main path's run, counted from 0 just before it; ms,
     # plain_ms and bound_ms are per frame.  The top-level numbers of a kernel
@@ -1687,6 +2127,16 @@ def main() -> int:
           f"{streams['GLOBAL_SMOOTHING']['syncs']} (GLOBAL_SMOOTHING); serving loop "
           f"{served['syncs']} (and one event wait per chunk, the drain's); app loop per frame "
           + ", ".join(f"{k} {len(r['syncs']) / r['frames']:.2f}" for k, r in apps.items()),
+          flush=True)
+    print("host syncs, phase 12: per steady frame of similarity / affine / homography "
+          + " / ".join(str(models[m]["syncs"]) for m in MODEL_PATHS)
+          + f"; per offline chunk (the warm-up one) {models['offline_affine']['syncs']} "
+          f"(affine), {models['offline_homography']['syncs']} (homography); the referee "
+          "per steady frame, all in its named host stages: "
+          + ", ".join(f"{k} {r['syncs_per_frame']:.2f} ({r['reads_per_frame']:.2f} host reads)"
+                      for k, r in referee.items())
+          + "; app loop per frame "
+          + ", ".join(f"{k} {len(r['syncs']) / r['frames']:.2f}" for k, r in app_flags.items()),
           flush=True)
     def counted(launches: int, run: dict) -> dict:
         return {"launches": launches, "launches_per_frame": launches / run["frames"]}
@@ -1708,7 +2158,23 @@ def main() -> int:
         "serve": {**counted(served["launches"], served), **kern["offline_config5"]},
         # the app's frames are config 3's size (720x1280, working height 360)
         "cli": {**counted(apps["resumed"]["warp"], apps["resumed"]), **kern["config3"]},
-        "cli_orb": {**counted(apps["orb-lock"]["warp"], apps["orb-lock"]), **kern["config3"]}}
+        "cli_orb": {**counted(apps["orb-lock"]["warp"], apps["orb-lock"]), **kern["config3"]},
+        # phase 12: each motion model at config 1, the offline chunk with the
+        # affine and the homography model, the referee, the app's flags
+        **{f"config1_{m}": {**counted(models[m]["launches"], models[m]), **kern[path]}
+           for m, path in MODEL_PATHS.items()},
+        "offline_config1_affine": {**counted(models["offline_affine"]["launches"],
+                                             models["offline_affine"]),
+                                   **kern["offline_config1"]},
+        "offline_config1_homography": {**counted(models["offline_homography"]["launches"],
+                                                 models["offline_homography"]),
+                                       **kern["offline_config1_lk_only"]},
+        "referee_compat_drift": {**counted(referee["compat_drift"]["launches"],
+                                           referee["compat_drift"]), **kern["output_only"]},
+        "referee_production_drift": {**counted(referee["production_drift"]["launches"],
+                                               referee["production_drift"]), **kern["config1"]},
+        **{f"cli_{k}": {**counted(r["warp"], r), **kern[r["path"]]}
+           for k, r in app_flags.items()}}
     fast_times = {k: fk[k] for k in ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by")}
     fast_paths = {"config3": {**counted(orb["fast_launches"], orb), **fast_times},
                   "offline_config3": {**counted(off3["fast_launches"], off3), **fast_times},

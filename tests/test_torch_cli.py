@@ -211,12 +211,37 @@ def test_profile_stages_taxonomy():
     assert "goodFeaturesToTrack" in line and "warpPerspective" in line and "total" in line
 
 
-@pytest.mark.parametrize("extra,match", [(["--trail"], "item 13"),
-                                         (["--motion-model", "affine"], "item 13"),
-                                         (["--reference-compat"], "item 14")])
-def test_app_refuses_what_is_not_ported(extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        app.main(APP_ARGS + ["--max-frames", "2"] + extra, device="cpu")
+@pytest.mark.parametrize("extra", [["--trail"], ["--motion-model", "affine"],
+                                   ["--reference-compat"]],
+                         ids=["trail", "motion_model_affine", "reference_compat"])
+def test_app_refuses_what_is_not_ported(tmp_path, extra):
+    """Once refused (ROADMAP Queue 1 items 13 and 14), each flag now runs:
+    6 frames written after the sync buffer.  ``--motion-model`` and
+    ``--reference-compat`` write the port ``Stabilizer``'s outputs of that
+    configuration on the same simulator frames; ``--trail`` writes its
+    composite instead, which differs from them."""
+    out = str(tmp_path / "out.y4m")
+    n = 6 + FUTURE
+    assert app.main(APP_ARGS + ["--max-frames", str(n), "--output", out] + extra,
+                    device="cpu") == 0
+    assert app.last_run["written"] == 6
+    got = y4m_frames(out)
+    assert len(got) == 6
+
+    src = SimulatorSource(device="cpu")
+    cfg = StabilizerConfig(past_frames=6, future_frames=FUTURE, working_height=180,
+                           frame_height=720, frame_width=1280,
+                           reference_compat="--reference-compat" in extra)
+    if "--motion-model" in extra:
+        cfg = dataclasses.replace(cfg, ransac=dataclasses.replace(cfg.ransac,
+                                                                  motion_model="affine"))
+    stab = Stabilizer(cfg, device="cpu")
+    want = [stab.stabilize_frame(src.read_tensor()).numpy() for _ in range(n)][FUTURE:]
+    same = [g == encode_y4m_planes(w, False) for g, w in zip(got, want)]
+    if "--trail" in extra:
+        assert not any(same)
+    else:
+        assert all(same)
 
 
 def test_app_refuses_cuda_without_a_card():

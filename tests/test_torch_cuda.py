@@ -1,7 +1,11 @@
 """The CUDA kernels on the card (affine warp, one image or a batch; FAST
 levels): each against its plain version, its input checks and its launch
-count; and ECC, the offline chunk step and the stream-batched step on the
-warp kernel against the same on the plain warp.  Marked ``gpu``:
+count; ECC, the offline chunk step and the stream-batched step on the
+warp kernel against the same on the plain warp; and each configuration
+the port once refused (the motion models, the per-point trackers, the
+referee) on the card with its warp launches counted, the step's host
+syncs with the non-rigid fits, the exact u8 gray, cv2's greedy corner
+fixpoint and the trail compositor against the CPU.  Marked ``gpu``:
 skipped without a CUDA card (run on one with
 ``python -m pytest tests/test_torch_cuda.py -m gpu -q --noconftest``)."""
 
@@ -451,3 +455,141 @@ def test_serve_on_the_card(dev, tmp_path):
         assert np.array_equal(outs["cuda"][s], want), f"stream {s}"
         diff = np.abs(outs["cuda"][s].astype(np.int16) - outs["cpu"][s].astype(np.int16))
         assert diff.mean() <= 0.5, f"stream {s}: mean |card - CPU| {diff.mean()}"
+
+
+def small_clip(dev, n=4, seed=0):
+    """n shaky 240x320 frames rendered on ``dev``."""
+    from video_stabilization_tpu_torch.sim import (
+        DEFAULT_APP_PARAMS, make_default_texture, render_frame, shake_trajectory)
+
+    rng = np.random.default_rng(seed)
+    tex = torch.from_numpy(make_default_texture(rng, 256)).to(dev)
+    traj = shake_trajectory(rng.standard_normal((n, 3)), rng.standard_normal(n),
+                            DEFAULT_APP_PARAMS, pos_amplitude=0.004, roll_amplitude=0.3,
+                            device=dev)
+    return torch.stack([render_frame(tex, traj[i], 240, 320) for i in range(n)])
+
+
+# each configuration the port once refused, and the warp launches per frame
+# it makes: dense LK's four and the output warp, the output alone with a
+# per-point tracker, dense LK's alone with the homography model
+FORMERLY_REFUSED = {
+    "homography": (dict(ransac="homography"), 4),
+    "affine": (dict(ransac="affine"), 5),
+    "similarity": (dict(ransac="similarity"), 5),
+    "cv2exact_ransac": (dict(ransac_method="cv2exact"), 5),
+    "reference_compat": (dict(reference_compat=True), 5),
+    "compat_drift": (dict(reference_compat=True, lk="cv2exact", gftt="host",
+                          ransac_method="cv2exact"), 1),
+    "sweep_lk": (dict(lk="sweep"), 1),
+    "cv2exact_lk": (dict(lk="cv2exact"), 1),
+    "cv2exact_gftt": (dict(gftt="cv2exact"), 5),
+    "corner_polish": (dict(polish=2), 5),
+}
+
+
+def formerly_refused_config(name):
+    from video_stabilization_tpu_torch.config import (
+        GFTTConfig, LKConfig, RansacConfig, StabilizerConfig)
+
+    kw, _ = FORMERLY_REFUSED[name]
+    return StabilizerConfig(
+        past_frames=4, future_frames=2, working_height=120, frame_height=240,
+        frame_width=320, reference_compat=kw.get("reference_compat", False),
+        lk=LKConfig(method=kw.get("lk", "dense"), corner_polish_iters=kw.get("polish", 0)),
+        gftt=GFTTConfig(max_features=256, selection=kw.get("gftt", "cell")),
+        ransac=RansacConfig(motion_model=kw.get("ransac", "rigid"),
+                            method=kw.get("ransac_method", "vmapped")))
+
+
+@pytest.mark.parametrize("name", list(FORMERLY_REFUSED))
+def test_formerly_refused_configs_on_the_card(dev, name):
+    """Each configuration the port once refused runs 6 frames on the card
+    with its warp launches per frame counted, and stays within a level on
+    average of the same run on the CPU (the card rounds its reductions
+    differently); the transforms within 0.05 px at the corners."""
+    from video_stabilization_tpu_torch.engine import Stabilizer
+
+    cfg = formerly_refused_config(name)
+    frames = small_clip(dev, 6)
+    stab = Stabilizer(cfg, device=dev)
+    before = aw.launches
+    outs = [stab.stabilize_frame(f) for f in frames]
+    assert aw.launches - before == FORMERLY_REFUSED[name][1] * 6
+    ref = Stabilizer(cfg, device="cpu")
+    want = [ref.stabilize_frame(f.cpu()) for f in frames]
+    for o, w in zip(outs, want):
+        assert o.device == frames.device
+        assert (o.cpu().float() - w.float()).abs().mean() <= 1.0
+    wh, ww = cfg.working_size
+    c = torch.tensor([[0, 0, 1], [ww, 0, 1], [ww, wh, 1], [0, wh, 1]], dtype=torch.float64).T
+    pa, pb = stab.carry.last_h.cpu().double() @ c, ref.carry.last_h.double() @ c
+    assert (pa[:2] / pa[2] - pb[:2] / pb[2]).abs().mean() <= 0.05
+    assert stab.host_reads == ref.host_reads
+
+
+@pytest.mark.parametrize("model", ["similarity", "affine", "homography"])
+def test_motion_models_step_reads_nothing_back(dev, model):
+    """The non-rigid fits (closed-form 3x3 solves, the DLT's eigenvector by
+    repeated squaring) keep the step free of host syncs: a steady frame
+    under ``set_sync_debug_mode("error")``."""
+    from video_stabilization_tpu_torch.engine import Stabilizer
+
+    stab = Stabilizer(formerly_refused_config(model), device=dev)
+    frames = small_clip(dev, 3)
+    stab.stabilize_frame(frames[0])
+    stab.stabilize_frame(frames[1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stab.stabilize_frame(frames[2])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_gray_u8_on_the_card_equals_cpu(dev):
+    from video_stabilization_tpu_torch.ops.image import gray_u8_cv2exact
+
+    frames = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 1080, 1920, 3),
+                                                                dtype=np.uint8))
+    for oh, ow in ((360, 640), (540, 960), (1080, 1920)):
+        got = gray_u8_cv2exact(frames.to(dev), oh, ow)
+        assert torch.equal(got.cpu(), gray_u8_cv2exact(frames, oh, ow))
+
+
+def test_greedy_on_the_card_equals_cpu(dev):
+    """Given one response map (the CPU's), cv2's exact corner list from the
+    card's candidate selection and greedy fixpoint equals the CPU's."""
+    from video_stabilization_tpu_torch.ops import gftt
+    from video_stabilization_tpu_torch.ops.image import gray_u8_cv2exact
+
+    frame = small_clip(dev, 1, seed=3)[0]
+    gray = gray_u8_cv2exact(frame.cpu(), 240, 320)
+    resp = gftt.min_eig_response(gray)
+    flat = torch.where(resp > 0.01 * resp.max(), gftt._nms3(resp), -torch.inf)
+    flat[0, :] = flat[-1, :] = flat[:, 0] = flat[:, -1] = -torch.inf
+    top, idx = gftt.top_k_stable(flat.flatten(), 4096)
+    pts = torch.stack([(idx % 320).float(), (idx // 320).float()], -1)
+    valid = torch.isfinite(top)
+    for k, md in ((1280, 10.0 * 240 / 720), (300, 7.3)):
+        want = gftt._greedy_cv2exact(pts, top, valid, md, k)
+        got = gftt._greedy_cv2exact(pts.to(dev), top.to(dev), valid.to(dev), md, k)
+        assert torch.equal(got.points.cpu(), want.points)
+        assert torch.equal(got.mask.cpu(), want.mask)
+        assert int(want.mask.sum()) > 100
+
+
+def test_trail_compositor_on_the_card(dev):
+    """``copy_feathered`` (the shear warp and the feather) on the card
+    within 0.05 levels of the CPU's on a 1080x1920 frame."""
+    from video_stabilization_tpu_torch.ops.compositing import copy_feathered
+
+    frame = small_clip(dev, 1)[0]
+    big = torch.nn.functional.interpolate(frame.permute(2, 0, 1)[None].float(),
+                                          size=(1080, 1920))[0].permute(1, 2, 0)
+    h = torch.tensor([[0.998, -0.03, 6.5], [0.03, 0.998, -4.25], [0, 0, 1]])
+    bg = torch.full((1080, 1920, 3), 40.0)
+    got = copy_feathered(big, bg.to(dev), h.to(dev))
+    want = copy_feathered(big.cpu(), bg, h)
+    assert (got.cpu() - want).abs().max() <= 0.05

@@ -10,9 +10,14 @@ across.
 
 Subpackages
 -----------
-- ``motion`` : homography decompose/compose, similarity fitting, RANSAC.
-- ``ops``    : image ops, pyramid, gradients, GFTT, dense LK, warps, the
-  registration filters, FAST, ORB, patch extraction, Hamming matching.
+- ``motion`` : homography decompose/compose, similarity fitting, RANSAC,
+  the host replica of cv2's RANSAC.
+- ``models`` : the motion-model family (rigid, similarity, affine,
+  homography).
+- ``ops``    : image ops, pyramid, gradients, GFTT (cell, cv2-exact and
+  the host replica), LK (dense, sweep, cv2-exact), warps, trail
+  compositing, the registration filters, FAST, ORB, patch extraction,
+  Hamming matching.
 - ``engine`` : carry, per-frame step, offline chunks, smoothing,
   registration lock, ``Stabilizer``.
 - ``parallel``: many streams on one card (a stream dimension in the carry).

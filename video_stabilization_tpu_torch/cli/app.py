@@ -7,14 +7,17 @@ mode switching, simulator movement keys, the display sync buffer that
 delays the original feed by ``future_frames`` so both views line up
 (src/main_utils.cpp:459-493), FPS and camera-pose overlays, "Buffering
 frames: k/n" warm-up messages, and headless operation (``--no-display``,
-``--output``, ``--max-frames``), ``--checkpoint`` / ``--resume`` and
-``--stats``.
+``--output``, ``--max-frames``), ``--checkpoint`` / ``--resume``,
+``--stats``, ``--motion-model``, ``--reference-compat`` and ``--trail``
+(the reference's dormant feathered trail compositor: each presented frame
+blended over a fading background by its stabilizing transform,
+``ops/compositing.py``).
 
 The engine runs on the card unless the caller names the CPU (``run(cfg,
 device="cpu")``).  A simulator's frames are rendered there and never leave
 it; the host reads back an output frame only to write or show it, and
-corner lists only for ``--debug-features``.  ``--trail`` (feathered trail
-compositing) is not ported yet and raises.
+corner lists only for ``--debug-features``.  The trail's background and
+transform stay on the device.
 """
 
 from __future__ import annotations
@@ -122,10 +125,6 @@ def run(cfg: AppConfig, device="cuda") -> int:
     unless the caller names the CPU)."""
     from video_stabilization_tpu_torch.engine import Stabilizer, map_carry, stabilize_step
 
-    if cfg.trail:
-        raise NotImplementedError(
-            "--trail (feathered trail compositing, ops/compositing.py) is not ported yet "
-            "(ROADMAP Queue 1 item 13)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"app: device {str(device)!r} requested but CUDA is not available")
@@ -205,6 +204,7 @@ def run(cfg: AppConfig, device="cuda") -> int:
     # display sync buffer: delay originals so both views align
     # (reference: src/main_utils.cpp:459-493)
     original_buffer: collections.deque = collections.deque()
+    trail_bg = None
     timer = StageTimer()
     n = 0
     written = 0
@@ -311,6 +311,18 @@ def run(cfg: AppConfig, device="cuda") -> int:
                 print(f"Buffering frames: {len(original_buffer)}/{future + 1}")
                 continue
             delayed, delayed_dbg = original_buffer.popleft()
+            if cfg.trail:
+                # the presentation frame (the delayed original) blended over
+                # the fading background by this step's transform, rescaled
+                # to full resolution
+                from video_stabilization_tpu_torch.ops.compositing import copy_feathered
+
+                if trail_bg is None:
+                    trail_bg = torch.zeros((fh, fw, 3), dtype=torch.float32, device=device)
+                h_full = stab.carry.last_h.clone()
+                h_full[:2, 2] = h_full[:2, 2] / engine_cfg.scale_factor
+                trail_bg = copy_feathered(stab._as_frame(delayed), trail_bg, h_full)
+                out = trail_bg.clamp(0, 255).to(torch.uint8)
             if writer is None and not display:
                 continue
             out_np = out.cpu().numpy()

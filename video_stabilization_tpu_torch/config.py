@@ -39,7 +39,7 @@ class GFTTConfig:
     min_distance_at_720: float = 10.0   # scaled by working_height / 720
     block_size: int = 3
     gradient_size: int = 3
-    selection: str = "cell"             # the port runs "cell" only
+    selection: str = "cell"             # "cell" | "cv2exact" | "host"
     max_candidates: int = 6144
 
 
@@ -52,8 +52,8 @@ class LKConfig:
     max_iters: int = 50
     epsilon: float = 0.01
     min_eig_threshold: float = 1e-4
-    method: str = "dense"               # the port runs "dense" only
-    corner_polish_iters: int = 0        # the port runs 0 only
+    method: str = "dense"               # "dense" | "sweep" | "cv2exact"
+    corner_polish_iters: int = 0        # per-point polish after dense LK
     warp_fallback: bool = True
 
 
@@ -66,8 +66,8 @@ class RansacConfig:
     lock_inlier_threshold: float = 5.0  # ORB/SIFT lock path (:510-511)
     refine_iters: int = 2
     min_points: int = 10                # MIN_POINTS_FOR_MOTION_ESTIMATION (:20)
-    motion_model: str = "rigid"         # the port runs "rigid" only
-    method: str = "vmapped"             # the port runs "vmapped" only
+    motion_model: str = "rigid"         # rigid | similarity | affine | homography
+    method: str = "vmapped"             # "vmapped" | "cv2exact" (host estimator)
 
 
 @dataclasses.dataclass(frozen=True)

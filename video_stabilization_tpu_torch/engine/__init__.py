@@ -24,7 +24,9 @@ from video_stabilization_tpu_torch.engine.stabilizer import (  # noqa: F401
     Stabilizer,
     frame_keys,
     make_scan_fn,
+    make_step_ext_fn,
     make_step_fn,
+    make_track_fn,
     stabilize_step,
 )
 from video_stabilization_tpu_torch.engine.state import (  # noqa: F401

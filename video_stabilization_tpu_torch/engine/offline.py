@@ -16,12 +16,14 @@ streams of K frames each (``offline_chunk_step`` is its S = 1 case):
   3. the short sequential chains as tensor ops over K: the K smoothing
      windows, the accumulated lock's masked prefix product (newest factor
      on the left) and the registration lock's sticky fallback;
-  4. the S·K output warps as one batched warp.
+  4. the S·K output warps as one batched warp (one batched
+     ``warp_perspective`` for the homography model).
 
-So the warp kernel launches four times for LK and once for the output per
-call, whatever S and K.  The registration lock (detection, matching,
-RANSAC, ECC) stays per frame, in a Python loop over the streams and then
-the chunk that reads nothing back.
+So with dense LK the warp kernel launches four times for LK and once for
+the output per call (four in all with the homography model), whatever S
+and K.  The registration lock (detection, matching, RANSAC, ECC) stays per
+frame, in a Python loop over the streams and then the chunk that reads
+nothing back.
 
 Semantics: K calls of :func:`~video_stabilization_tpu_torch.engine.stabilizer.stabilize_step`
 per stream for any K up to the window W, with each stream's own ``fold_in``
@@ -56,11 +58,13 @@ from video_stabilization_tpu_torch.config import StabilizationMode, StabilizerCo
 from video_stabilization_tpu_torch.engine.lock import _registration_lock, detect_features
 from video_stabilization_tpu_torch.engine.smoothing import _prefix_products, smoothing_homography
 from video_stabilization_tpu_torch.engine.stabilizer import (
-    ACCUM_MODES,
     _fit_inter_frame,
-    check_config,
+    accumulating_modes,
+    corner_config,
     frame_keys,
+    next_corners,
     stabilized_outputs,
+    working_gray,
 )
 from video_stabilization_tpu_torch.engine.state import EngineCarry, map_carry
 from video_stabilization_tpu_torch.ops.gftt import good_features_to_track
@@ -116,19 +120,25 @@ def offline_batched_chunk_step(
     frames: torch.Tensor,
     config: StabilizerConfig,
     *,
-    ecc_warp_fallback: bool = False,
+    streaming: bool = False,
 ) -> Tuple[EngineCarry, Tuple[torch.Tensor, torch.Tensor]]:
     """Process K consecutive frames of each of S streams, (S, K, Hf, Wf, C)
     uint8 on the carry's device, with a carry of S streams (every tensor
     (S, ...)) -> (carry', (outputs (S, K, Hf, Wf, C) u8, valid (S, K))),
     the same as K ``stabilize_step`` calls per stream.  ``carry.frames`` is
-    updated in place.  ``ecc_warp_fallback`` is ECC's ``warp_fallback``."""
+    updated in place.
+
+    ``streaming`` gives the batched step (K = 1) the streaming step's
+    stages where the JAX offline chunk differs from it: ECC with its warp
+    fallback, cv2's exact u8 gray under ``reference_compat`` and empty
+    corner lanes for ``gftt.selection="host"``.  Without it the chunk
+    takes the JAX offline chunk's: the float gray, and the detector of
+    ``corner_config`` (``"host"`` runs the cell selection)."""
     mode = require_static_mode(config, "offline pipeline")
     s_n, k = frames.shape[:2]
     w = config.total_window
     if k > w:
         raise ValueError(f"chunk size {k} exceeds temporal window {w}")
-    check_config(config)
 
     dev = carry.frames.device
     if frames.device != dev:
@@ -158,10 +168,16 @@ def offline_batched_chunk_step(
 
     # 1. gray, pyramid and GFTT of the S·K frames (resize before gray)
     with stage("gray_pyramid"):
-        grays = bgr_to_gray(resize_bilinear(flat.float(), wh, ww))
+        if streaming:
+            grays = working_gray(flat, config)
+        else:
+            grays = bgr_to_gray(resize_bilinear(flat.float(), wh, ww))
         pyrs = build_pyramid(grays, config.lk.pyramid_levels)
     with stage("gftt"):
-        corners = good_features_to_track(grays, config.gftt)
+        if streaming:
+            corners = next_corners(grays, config)
+        else:
+            corners = good_features_to_track(grays, corner_config(config))
 
     # 2. LK and RANSAC of the S·K pairs, each as one batch
     pts_prev = after_carry(carry.corners_prev, corners.points)
@@ -204,7 +220,7 @@ def offline_batched_chunk_step(
     lock_matches = torch.zeros((s_n, k), dtype=torch.int32, device=dev)
     accum_h = eye.expand(s_n, 3, 3).clone()
     accum_active = torch.zeros(s_n, dtype=torch.bool, device=dev)
-    if mode in ACCUM_MODES:
+    if mode in accumulating_modes(config):
         with stage("lock"):
             h0 = torch.where(carry.accum_active[:, None, None], carry.accum_h, eye)
             advanced = (n_after - 1 - future) >= 1
@@ -234,7 +250,7 @@ def offline_batched_chunk_step(
                         feats, proc, c = found[s * k + j]
                         res = _registration_lock(feats.points, feats.desc, feats.mask, proc,
                                                  ref, prev_h, k_lock[s, j], config, c, use_orb,
-                                                 ecc_warp_fallback=ecc_warp_fallback)
+                                                 ecc_warp_fallback=streaming)
                         ref, prev_h = res.ref, res.prev_h
                         hs.append(res.h_lock)
                         matches.append(res.n_matches)
@@ -254,7 +270,8 @@ def offline_batched_chunk_step(
     # 6. rotation split, mode select, rescale and one batched warp
     h_stab, outputs, outside = stabilized_outputs(
         mode, h_smooth, h_lock, pres_frames, frames, ns == 0, center, scale_factor,
-        config.warp_projective_fallback and mode not in BOUNDED_MODES)
+        config.warp_projective_fallback and mode not in BOUNDED_MODES,
+        config.ransac.motion_model == "homography")
     out_valid = torch.ones((s_n, k), dtype=torch.bool, device=dev)
 
     new_carry = EngineCarry(

@@ -1,11 +1,14 @@
 """The per-frame stabilization step and the ``Stabilizer`` wrapper.
 
-Port of ``video_stabilization_tpu/engine/stabilizer.py`` for the rigid
-motion model with dense LK, cell GFTT and batched-hypothesis RANSAC:
+Port of ``video_stabilization_tpu/engine/stabilizer.py``:
 
-  1. full-res BGR -> working-res gray + pyramid
-  2. dense LK of the previous corners into this frame
-  3. RANSAC similarity + isotropic-scale removal -> inter-frame T
+  1. full-res BGR -> working-res gray (cv2's exact u8 gray under
+     ``reference_compat``) + pyramid
+  2. LK of the previous corners into this frame (``lk.method``)
+  3. RANSAC similarity + isotropic-scale removal -> inter-frame T (rigid),
+     or the similarity hypotheses' inliers refit by the configured motion
+     model (``models/motion_models.py``); or the motion a host estimator
+     computed (``ext_motion``)
   4. ring updates (frames circular, transforms rolled)
   5. smoothing homography Q
   6. lock homography: accumulated (anchor / advance / invert) or the ORB
@@ -14,7 +17,8 @@ motion model with dense LK, cell GFTT and batched-hypothesis RANSAC:
   7. rotation split into translation and rotation locks
   8. mode switch
   9. translation rescale to full resolution, warp of the presentation frame
- 10. GFTT for the next frame
+ 10. GFTT for the next frame (cv2's exact list under ``reference_compat``;
+     empty lanes for ``gftt.selection="host"``, which the host fills)
 
 The mode is a host ``int`` (``Stabilizer`` keeps it, the carry mirrors it as
 a tensor), so branching on it never waits for the device.  The step
@@ -25,11 +29,12 @@ from ``config.static_mode`` when it is set, else from one read of
 package's data-dependent ``lax.cond`` on small values become
 ``torch.where`` over both sides.  On a CUDA card a step reads nothing back
 to the host: the warp kernel decides its envelope branch on the device
-(``ops/affine_warp.py``).
-
-Not ported yet, and refused with ``NotImplementedError``: the non-rigid
-motion models, the host-estimator split (``ext_motion``) and the
-``reference_compat`` referee paths.
+(``ops/affine_warp.py``).  The exceptions are the referee's stages, which
+read to the host by design: cv2exact GFTT's fixpoint (one read every
+``ops.gftt.GREEDY_CHECK_EVERY`` rounds) and, with ``ransac.method=
+"cv2exact"``, ``Stabilizer``'s host-estimator split (:meth:`Stabilizer.
+stabilize_frame`).  The homography model warps its output through
+``ops/warp.py::warp_perspective``; the other models through the warp kernel.
 """
 
 from __future__ import annotations
@@ -51,13 +56,15 @@ from video_stabilization_tpu_torch.motion.homography import (
     decompose_homography,
     remove_isotropic_scale,
 )
+from video_stabilization_tpu_torch.models.motion_models import MotionModel, fit_motion
 from video_stabilization_tpu_torch.motion.ransac import estimate_similarity_ransac
 from video_stabilization_tpu_torch.ops.affine_warp import affine_envelope_ok, warp_affine
-from video_stabilization_tpu_torch.ops.gftt import good_features_to_track
-from video_stabilization_tpu_torch.ops.image import bgr_to_gray, resize_bilinear
+from video_stabilization_tpu_torch.ops.gftt import Corners, good_features_to_track
+from video_stabilization_tpu_torch.ops.image import (
+    bgr_to_gray, gray_u8_cv2exact, resize_bilinear)
 from video_stabilization_tpu_torch.ops.lk import lk_track
 from video_stabilization_tpu_torch.ops.pyramid import build_pyramid
-from video_stabilization_tpu_torch.ops.warp import _inv3x3
+from video_stabilization_tpu_torch.ops.warp import _inv3x3, warp_perspective
 from video_stabilization_tpu_torch.utils import prng
 from video_stabilization_tpu_torch.utils.stage_profile import stage
 
@@ -68,19 +75,49 @@ ACCUM_MODES = (
 )
 
 
-def check_config(config: StabilizerConfig) -> None:
-    """Raise for the configurations the port does not run yet."""
+
+def accumulating_modes(config: StabilizerConfig) -> tuple:
+    """The modes that anchor and advance the accumulated lock: under
+    ``reference_compat`` only ACCUMULATED_FULL_LOCK, since the reference's
+    translation and rotation locks are no-ops (H_lock identity,
+    src/stabilizer.cpp:790)."""
     if config.reference_compat:
-        raise NotImplementedError(
-            "reference_compat is not ported yet (ROADMAP Queue 1 item 14)")
-    if config.ransac.method != "vmapped":
-        raise NotImplementedError(
-            f"ransac.method={config.ransac.method!r} is not ported yet "
-            "(ROADMAP Queue 1 item 14)")
-    if config.ransac.motion_model != "rigid":
-        raise NotImplementedError(
-            f"ransac.motion_model={config.ransac.motion_model!r} is not ported yet "
-            "(ROADMAP Queue 1 item 13)")
+        return (StabilizationMode.ACCUMULATED_FULL_LOCK,)
+    return ACCUM_MODES
+
+
+def working_gray(frames: torch.Tensor, config: StabilizerConfig) -> torch.Tensor:
+    """(..., Hf, Wf, C) u8 frames -> (..., wh, ww) f32 working gray: cv2's
+    exact u8 gray under ``reference_compat`` (a ±1 level perturbs the
+    referee's corner list), else resize then gray, the reference's order."""
+    wh, ww = config.working_size
+    if config.reference_compat:
+        return gray_u8_cv2exact(frames, wh, ww)
+    return bgr_to_gray(resize_bilinear(frames.float(), wh, ww))
+
+
+def corner_config(config: StabilizerConfig):
+    """The next frame's corner detector: cv2's exact list under
+    ``reference_compat`` (corner-set selection dominates the drift against
+    the reference), else ``config.gftt``."""
+    if config.reference_compat and config.gftt.selection != "cv2exact":
+        return dataclasses.replace(config.gftt, selection="cv2exact")
+    return config.gftt
+
+
+def next_corners(gray: torch.Tensor, config: StabilizerConfig) -> Corners:
+    """The streaming step's corners for the next frame on (..., wh, ww)
+    grays: with ``gftt.selection="host"`` empty lanes (the host injects its
+    element-exact list after the step, ``Stabilizer.stabilize_frame``),
+    else :func:`corner_config`'s detector."""
+    if config.gftt.selection == "host":
+        lead = gray.shape[:-2]
+        nf = config.gftt.max_features
+        zeros = torch.zeros(lead + (nf,), dtype=torch.float32, device=gray.device)
+        return Corners(points=torch.zeros(lead + (nf, 2), dtype=torch.float32,
+                                          device=gray.device),
+                       response=zeros, mask=torch.zeros_like(zeros, dtype=torch.bool))
+    return good_features_to_track(gray, corner_config(config))
 
 
 def _rotation_about(theta: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
@@ -94,11 +131,19 @@ def _rotation_about(theta: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
 
 
 def _fit_inter_frame(src, dst, status, key, config: StabilizerConfig, center):
-    """RANSAC similarity fit of the tracked correspondences, then removal of
-    the isotropic scale about the image centre (rigid model)."""
-    ransac = estimate_similarity_ransac(src, dst, status, key, config.ransac)
-    t_rigid, _ = remove_isotropic_scale(ransac.h, center)
-    return ransac, t_rigid
+    """RANSAC fit of the tracked correspondences -> (result, inter-frame T).
+    Rigid: the similarity fit, then removal of the isotropic scale about the
+    image centre.  Other models: similarity hypotheses select the inliers,
+    the configured model refits on them (LO-RANSAC)."""
+    if config.ransac.motion_model == "rigid":
+        ransac = estimate_similarity_ransac(src, dst, status, key, config.ransac)
+        t_rigid, _ = remove_isotropic_scale(ransac.h, center)
+        return ransac, t_rigid
+    model = MotionModel(config.ransac.motion_model)
+    ransac = estimate_similarity_ransac(
+        src, dst, status, key, config.ransac,
+        refit_fn=lambda s, d, w: fit_motion(model, s, d, w, center))
+    return ransac, ransac.h
 
 
 def frame_keys(base_key: torch.Tensor, n: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -108,15 +153,17 @@ def frame_keys(base_key: torch.Tensor, n: torch.Tensor) -> Tuple[torch.Tensor, t
 
 
 def stabilized_outputs(mode: int, h_smooth, h_lock, pres_frames, frames, is_first, center,
-                       scale_factor, projective_fallback: bool):
+                       scale_factor, projective_fallback: bool, homography: bool = False):
     """The step's tail over any leading dims (none for the streaming step,
     (S, K) for a chunk of S streams): rotation split of ``h_lock``, the
     mode's stabilizing homography, its rescale to full resolution, and one
     batched warp of all (..., Hf, Wf, C) presentation frames, each with the
     border 0.5 · its mean colour; where ``is_first``, the new frame in
-    ``frames`` passes through unwarped.  Returns (h_stab (..., 3, 3),
-    outputs (..., Hf, Wf, C) u8, (...) bool: ``h_stab`` outside the warp's
-    envelope)."""
+    ``frames`` passes through unwarped.  With ``homography`` (the homography
+    motion model) the projective row rescales too and the frames go through
+    ``warp_perspective``, which has no envelope.  Returns (h_stab (..., 3,
+    3), outputs (..., Hf, Wf, C) u8, (...) bool: ``h_stab`` outside the
+    warp kernel's envelope)."""
     eye = torch.eye(3, dtype=torch.float32, device=h_lock.device)
     with stage("rotation_split"):
         lock_params, lock_ok = decompose_homography(h_lock, center)
@@ -131,15 +178,21 @@ def stabilized_outputs(mode: int, h_smooth, h_lock, pres_frames, frames, is_firs
     else:
         h_stab = h_lock
 
-    # the affine block is scale-invariant: only the translation rescales
+    # the affine block is scale-invariant: the translation divides by the
+    # factor, a projective row multiplies by it
     h_scaled = h_stab.clone()
     h_scaled[..., 0:2, 2] = h_stab[..., 0:2, 2] / scale_factor
-    outside = ~affine_envelope_ok(h_scaled)
     with stage("warp"):
         pres = pres_frames.reshape((-1,) + pres_frames.shape[-3:]).float()
-        out = warp_affine(pres, h_scaled.reshape(-1, 3, 3),
-                          border_value=0.5 * pres.mean(dim=(1, 2)),
-                          projective_fallback=projective_fallback)
+        border = 0.5 * pres.mean(dim=(1, 2))
+        if homography:
+            h_scaled[..., 2, 0:2] = h_scaled[..., 2, 0:2] * scale_factor
+            outside = torch.zeros(h_scaled.shape[:-2], dtype=torch.bool, device=h_scaled.device)
+            out = warp_perspective(pres, h_scaled.reshape(-1, 3, 3), None, border)
+        else:
+            outside = ~affine_envelope_ok(h_scaled)
+            out = warp_affine(pres, h_scaled.reshape(-1, 3, 3), border_value=border,
+                              projective_fallback=projective_fallback)
         warped_u8 = torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
     outputs = torch.where(is_first[..., None, None, None], frames.to(torch.uint8),
                           warped_u8.reshape(pres_frames.shape))
@@ -156,12 +209,12 @@ def stabilize_step(
     """Process one (Hf, Wf, C) uint8 BGR frame -> (carry', (output, valid)).
 
     ``mode`` is the host copy of ``carry.mode`` (``config.static_mode``
-    overrides it).  ``carry.frames`` is updated in place."""
-    if ext_motion is not None:
-        raise NotImplementedError(
-            "ext_motion (host estimator split) is not ported yet "
-            "(ROADMAP Queue 1 item 14)")
-    check_config(config)
+    overrides it).  ``carry.frames`` is updated in place.
+
+    ``ext_motion``: an optional ``(h (3, 3) f32, valid () bool, n_inliers ()
+    int32)`` inter-frame rigid motion computed by a host estimator (the
+    cv2exact RANSAC replica, ``motion/cv2_ransac.py``); given, the step
+    skips its own LK and RANSAC stages."""
     if config.static_mode is not None:
         mode = int(config.static_mode)
 
@@ -177,22 +230,26 @@ def stabilize_step(
     eye = torch.eye(3, **f32)
     k_ransac, k_lock = frame_keys(carry.key, carry.n)
 
-    # 1. working-res gray + pyramid (resize before gray, as the reference)
+    # 1. working-res gray + pyramid
     with stage("gray"):
-        gray = bgr_to_gray(resize_bilinear(frame.float(), wh, ww))
+        gray = working_gray(frame, config)
     with stage("pyramid"):
         pyr = build_pyramid(gray, config.lk.pyramid_levels)
 
-    # 2-3. track + inter-frame motion
-    with stage("lk_track"):
-        tracked = lk_track(carry.pyr_prev, pyr, carry.corners_prev, carry.corners_mask,
-                           config.lk)
-    with stage("inter_frame_fit"):
-        ransac, t_rigid = _fit_inter_frame(carry.corners_prev, tracked.points,
-                                           tracked.status, k_ransac, config, center)
+    # 2-3. track + inter-frame motion, unless a host estimator gave it
+    if ext_motion is None:
+        with stage("lk_track"):
+            tracked = lk_track(carry.pyr_prev, pyr, carry.corners_prev, carry.corners_mask,
+                               config.lk)
+        with stage("inter_frame_fit"):
+            ransac, t_rigid = _fit_inter_frame(carry.corners_prev, tracked.points,
+                                               tracked.status, k_ransac, config, center)
+        fit_valid, n_inliers = ransac.valid, ransac.num_inliers
+    else:
+        t_rigid, fit_valid, n_inliers = ext_motion
     is_first = carry.n == 0
     have_prev = carry.n >= 1
-    t_new = torch.where(have_prev & ransac.valid, t_rigid, eye)
+    t_new = torch.where(have_prev & fit_valid, t_rigid, eye)
 
     # 4. ring updates
     n_after = carry.n + 1
@@ -236,7 +293,7 @@ def stabilize_step(
         h_lock, sift_ref, lock_prev_h, lock_matches = (res.h_lock, res.ref, res.prev_h,
                                                        res.n_matches)
     else:
-        if mode in ACCUM_MODES:
+        if mode in accumulating_modes(config):
             advanced = (n_after - 1 - future) >= 1
             tr_slot = ((transforms.shape[0] - num_tr) + pres - 1).clamp(0, w - 2)
             t_pres = transforms.index_select(0, tr_slot.long().view(1))[0]
@@ -249,13 +306,13 @@ def stabilize_step(
     # 7-9. rotation split, mode switch, rescale and warp
     h_stabilize, output, outside = stabilized_outputs(
         mode, h_smooth, h_lock, pres_frame, frame, is_first, center, scale_factor,
-        config.warp_projective_fallback)
+        config.warp_projective_fallback, config.ransac.motion_model == "homography")
     env_viol = carry.envelope_violations + outside.to(torch.int32)
     out_valid = torch.ones((), dtype=torch.bool, device=dev)
 
     # 10. features for the next frame
     with stage("gftt"):
-        corners = good_features_to_track(gray, config.gftt)
+        corners = next_corners(gray, config)
 
     new_carry = EngineCarry(
         frames=frames,
@@ -272,7 +329,7 @@ def stabilize_step(
         sift_ref=sift_ref,
         lock_prev_h=lock_prev_h,
         last_h=h_stabilize,
-        last_inliers=ransac.num_inliers,
+        last_inliers=n_inliers,
         last_lock_matches=lock_matches,
         envelope_violations=env_viol,
         key=carry.key,
@@ -296,7 +353,6 @@ def make_step_fn(config: StabilizerConfig) -> Callable:
     mode is :func:`host_mode`'s: one read of ``carry.mode`` per call unless
     ``config.static_mode`` is set.  ``carry.frames`` is updated in place
     (the JAX step donates the carry)."""
-    check_config(config)
 
     def step(carry: EngineCarry, frame: torch.Tensor):
         return stabilize_step(carry, frame, config, host_mode(carry, config))
@@ -310,7 +366,6 @@ def make_scan_fn(config: StabilizerConfig) -> Callable:
     C), valid (T,))): the step over a clip, frame by frame on the carry's
     device, as the JAX package's ``lax.scan`` of it.  The mode is read once
     per clip (:func:`host_mode`); the step keeps ``carry.mode``."""
-    check_config(config)
 
     def scan(carry: EngineCarry, frames):
         frames = torch.as_tensor(frames).to(carry.frames.device)
@@ -325,11 +380,54 @@ def make_scan_fn(config: StabilizerConfig) -> Callable:
     return scan
 
 
+@functools.lru_cache(maxsize=32)
+def make_track_fn(config: StabilizerConfig) -> Callable:
+    """(carry, frame) -> (tracked points (N, 2), status (N,)): the gray,
+    pyramid and LK prefix of the step, for the host-estimator split.  The
+    step derives its gray and pyramid again; the duplicate is confined to
+    the referee, where exactness, not speed, is the point."""
+
+    def track(carry: EngineCarry, frame: torch.Tensor):
+        with stage("gray"):
+            gray = working_gray(frame, config)
+        with stage("pyramid"):
+            pyr = build_pyramid(gray, config.lk.pyramid_levels)
+        with stage("lk_track"):
+            tracked = lk_track(carry.pyr_prev, pyr, carry.corners_prev,
+                               carry.corners_mask, config.lk)
+        return tracked.points, tracked.status
+
+    return track
+
+
+@functools.lru_cache(maxsize=32)
+def make_step_ext_fn(config: StabilizerConfig) -> Callable:
+    """(carry, frame, ext_motion) -> (carry, (output, valid)): the step with
+    the inter-frame motion from a host estimator (``stabilize_step``'s
+    ``ext_motion``), the mode as :func:`host_mode` gives it."""
+
+    def step_ext(carry: EngineCarry, frame: torch.Tensor, ext_motion):
+        return stabilize_step(carry, frame, config, host_mode(carry, config), ext_motion)
+
+    return step_ext
+
+
 class Stabilizer:
     """One stream: construct with a config, feed frames one at a time,
     switch modes at runtime (the reference's public API).  It runs on the
     CUDA card unless ``device`` names the CPU; with no card, asking for CUDA
-    raises rather than falls back."""
+    raises rather than falls back.
+
+    With ``ransac.method="cv2exact"`` (the reference-compat referee) each
+    frame runs the host-estimator split: the track prefix on the device,
+    the bit-exact ``cv2.estimateAffinePartial2D`` replica on the host
+    (``motion/cv2_ransac.py``), then the step with that motion; with
+    ``gftt.selection="host"`` too, the element-exact corner list of
+    ``ops/gftt_host.py`` replaces the step's corners.  Host traffic per
+    frame, by design: one read of the previous corners, tracked points and
+    status together; the motion's upload; with host GFTT, a read of the
+    frame (none when it is given as a numpy array) and the corners' upload.
+    :attr:`host_reads` counts the reads."""
 
     def __init__(self, config: StabilizerConfig,
                  mode: StabilizationMode = StabilizationMode.GLOBAL_SMOOTHING,
@@ -341,8 +439,11 @@ class Stabilizer:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"Stabilizer: device {device!r} requested but CUDA "
                                "is not available")
-        check_config(config)
         self.config = config
+        if config.ransac.method == "cv2exact" and config.ransac.motion_model != "rigid":
+            raise ValueError("cv2exact RANSAC supports the rigid model only")
+        self._track = make_track_fn(config) if config.ransac.method == "cv2exact" else None
+        self.host_reads = 0
         self._mode = int(mode)
         self.carry = init_carry(config, self._mode, prng.key(seed), self.device)
 
@@ -391,9 +492,57 @@ class Stabilizer:
     def stabilize_frame(self, frame) -> torch.Tensor:
         """Feed one (Hf, Wf, C) uint8 BGR frame (array or tensor); returns the
         stabilized, delayed output frame on the device."""
-        self.carry, (output, _) = stabilize_step(self.carry, self._as_frame(frame),
-                                                 self.config, self._mode)
+        f = self._as_frame(frame)
+        if self._track is None:
+            self.carry, (output, _) = stabilize_step(self.carry, f, self.config, self._mode)
+            return output
+        self.carry, (output, _) = stabilize_step(self.carry, f, self.config, self._mode,
+                                                 self._host_motion(f))
+        if self.config.gftt.selection == "host":
+            self._inject_host_corners(frame)
         return output
+
+    def _host_motion(self, f: torch.Tensor):
+        """The host estimator stage: the track prefix on the device, one read
+        of (previous corners | tracked points | status), the cv2exact RANSAC
+        replica and de-scale in float64, the motion uploaded."""
+        from video_stabilization_tpu_torch.motion.cv2_ransac import estimate_rigid_cv2_host
+
+        pts, status = self._track(self.carry, f)
+        with stage("host_read"):
+            both = torch.cat([self.carry.corners_prev, pts, status.float()[:, None]], 1).cpu()
+            self.host_reads += 1
+        wh, ww = self.config.working_size
+        with stage("host_ransac"):
+            h, valid, n_inl = estimate_rigid_cv2_host(
+                both[:, 0:2].numpy(), both[:, 2:4].numpy(), both[:, 4].numpy() > 0.5,
+                center=(ww / 2.0, wh / 2.0), min_points=self.config.ransac.min_points,
+                ransac_reproj_threshold=self.config.ransac.inlier_threshold)
+        dev = self.device
+        return (torch.tensor(h, dtype=torch.float32).to(dev, non_blocking=True),
+                torch.tensor(valid).to(dev, non_blocking=True),
+                torch.tensor(n_inl, dtype=torch.int32).to(dev, non_blocking=True))
+
+    def _inject_host_corners(self, frame) -> None:
+        """cv2's element-exact corner list of ``frame`` (``ops/gftt_host.py``)
+        into the carry, so the next frame's hypothesis stream stays the
+        reference pipeline's."""
+        from video_stabilization_tpu_torch.ops.gftt_host import detect_corners_host
+
+        if not isinstance(frame, np.ndarray):
+            with stage("host_read"):
+                frame = frame.cpu().numpy()
+                self.host_reads += 1
+        cfg = self.config
+        wh, ww = cfg.working_size
+        with stage("host_gftt"):
+            pts, mask = detect_corners_host(
+                np.asarray(frame, np.uint8), (wh, ww), cfg.gftt.max_features,
+                cfg.gftt.quality_level, cfg.gftt.min_distance_at_720 * (wh / 720.0))
+        dev = self.device
+        self.carry = dataclasses.replace(
+            self.carry, corners_prev=torch.from_numpy(pts).to(dev, non_blocking=True),
+            corners_mask=torch.from_numpy(mask).to(dev, non_blocking=True))
 
     def stabilize_clip(self, frames) -> torch.Tensor:
         """Feed a (T, Hf, Wf, C) clip frame by frame; returns the outputs."""

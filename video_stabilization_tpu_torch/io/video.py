@@ -17,6 +17,7 @@ only the camera, non-Y4M files and texture images need it.
 
 from __future__ import annotations
 
+import abc
 import os
 from typing import Optional, Tuple
 
@@ -30,14 +31,15 @@ except Exception:  # pragma: no cover
     _HAS_CV2 = False
 
 
-class FrameSource:
+class FrameSource(abc.ABC):
     """Abstract frame source."""
 
     fps: float = 30.0
     frame_size: Tuple[int, int] = (720, 1280)    # (H, W)
 
+    @abc.abstractmethod
     def read(self) -> Optional[np.ndarray]:
-        raise NotImplementedError
+        """The next (H, W, 3) uint8 BGR frame, or None at the end."""
 
     def close(self) -> None:
         pass

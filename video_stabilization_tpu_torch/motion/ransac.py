@@ -4,7 +4,8 @@ Port of ``video_stabilization_tpu/motion/ransac.py``.  All hypotheses are
 drawn up front from the same threefry stream as the JAX package
 (``utils/prng.py``), solved in one batch, scored as one (hypotheses x points)
 broadcast and picked by a first-index argmax; the inlier set is then refit a
-fixed number of times.  No host synchronisation.
+fixed number of times, by the similarity LS or by a ``refit_fn`` of another
+motion family (``models/motion_models.py``).  No host synchronisation.
 """
 
 from __future__ import annotations
@@ -46,11 +47,18 @@ def estimate_similarity_ransac(
     key: torch.Tensor,
     config: RansacConfig = RansacConfig(),
     inlier_threshold: float | None = None,
+    refit_fn=None,
 ) -> RansacResult:
     """Robust similarity fit of masked (..., N, 2) correspondences ``src ->
     dst`` with hypotheses drawn from the (..., 2) threefry ``key``: each
     leading index is one independent problem with its own key, and gives
-    what a call on that slice alone gives."""
+    what a call on that slice alone gives.
+
+    ``refit_fn(src, dst, weights) -> (h, valid)`` refines the inlier set
+    in place of the similarity LS (LO-RANSAC: similarity hypotheses select
+    the inliers, the configured motion family refits on them)."""
+    if refit_fn is None:
+        refit_fn = fit_similarity_masked
     dtype = src.dtype
     thresh = inlier_threshold if inlier_threshold is not None else config.inlier_threshold
     thresh2 = thresh * thresh
@@ -82,7 +90,7 @@ def estimate_similarity_ransac(
     h_cur = torch.take_along_dim(h_hyp, best[..., None, None], dim=-3)[..., 0, :, :]
     inl = torch.take_along_dim(inlier, best[..., None], dim=-2)[..., 0, :]
     for _ in range(config.refine_iters):
-        h_new, fit_valid = fit_similarity_masked(src, dst, inl.to(dtype) * maskf)
+        h_new, fit_valid = refit_fn(src, dst, inl.to(dtype) * maskf)
         h_cur = torch.where(fit_valid[..., None, None], h_new, h_cur)
         r2 = ((transform_points(h_cur, src) - dst) ** 2).sum(-1)
         inl = (r2 < thresh2) & mask

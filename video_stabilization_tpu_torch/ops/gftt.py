@@ -1,10 +1,19 @@
-"""Shi-Tomasi corners with cell-based selection (fixed shape).
+"""Shi-Tomasi corners (goodFeaturesToTrack), fixed shape.
 
-Port of ``video_stabilization_tpu/ops/gftt.py`` (``min_eig_response``,
-``_nms3``, ``selection="cell"``): min-eigenvalue response -> relative quality
-threshold -> strict 3x3 NMS -> best survivor per min-distance cell -> the
-top ``max_features`` cells.  ``lax.top_k`` breaks ties by the lower index;
-``torch.topk`` promises no order, so the port sorts stably instead.
+Port of ``video_stabilization_tpu/ops/gftt.py``.  Two selections
+(``GFTTConfig.selection``):
+
+- ``"cell"`` (also what ``"host"`` runs here, as in the JAX package: the
+  host stage, ``ops/gftt_host.py``, replaces the list afterwards):
+  min-eigenvalue response -> relative quality threshold -> strict 3x3 NMS
+  -> best survivor per min-distance cell -> the top ``max_features`` cells;
+- ``"cv2exact"``: cv2's own pipeline, whose greedy response-ordered
+  min-distance suppression is computed as a parallel priority-MIS fixpoint
+  (:func:`_greedy_cv2exact`): a candidate is accepted iff no accepted
+  higher-response candidate lies within minDistance.
+
+``lax.top_k`` breaks ties by the lower index; ``torch.topk`` promises no
+order, so the port sorts stably instead.
 """
 
 from __future__ import annotations
@@ -52,16 +61,102 @@ def top_k_stable(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+# rounds of the greedy fixpoint between two host reads of "anything left
+# undecided?": rounds after the fixpoint change nothing, so checking every
+# few rounds keeps the list exact and costs one host sync per few rounds
+GREEDY_CHECK_EVERY = 8
+
+
+def _greedy_cv2exact(pts: torch.Tensor, resp: torch.Tensor, valid: torch.Tensor,
+                     min_distance: float, k: int) -> Corners:
+    """cv2's greedy min-distance suppression of (M, 2) candidates already
+    sorted by response (descending), as a priority-MIS fixpoint: every round
+    accepts each undecided candidate with no undecided or accepted
+    higher-priority neighbour, and rejects each one with an accepted
+    neighbour.  Neighbours are cv2's: strictly closer than ``min_distance``
+    and in the 3x3 neighbourhood of ``round(min_distance)`` cells (so a
+    pair slightly closer than min_distance but two cells apart does not
+    suppress).  The first ``k`` accepted, in response order, are returned.
+    The loop reads "anything undecided?" to the host every
+    ``GREEDY_CHECK_EVERY`` rounds."""
+    m = pts.shape[0]
+    x, y = pts[:, 0], pts[:, 1]
+    cell = max(int(round(min_distance)), 1)
+    cx = torch.div(x.to(torch.int32), cell, rounding_mode="floor")
+    cy = torch.div(y.to(torch.int32), cell, rounding_mode="floor")
+    dx = x[:, None] - x[None, :]
+    dy = y[:, None] - y[None, :]
+    near_cell = ((cx[:, None] - cx[None, :]).abs() <= 1) & ((cy[:, None] - cy[None, :]).abs() <= 1)
+    within = (dx * dx + dy * dy < min_distance * min_distance) & near_cell
+    del dx, dy, near_cell
+    # j suppresses i iff j precedes i in response order
+    order = torch.arange(m, device=pts.device)
+    adj = within & (order[None, :] < order[:, None]) & valid[:, None] & valid[None, :]
+    del within
+
+    acc = torch.zeros(m, dtype=torch.bool, device=pts.device)
+    rej = torch.zeros_like(acc)
+    rounds = 0
+    while rounds < m:
+        for _ in range(min(GREEDY_CHECK_EVERY, m - rounds)):
+            und = valid & ~acc & ~rej
+            sup = (adj & acc[None, :]).any(1)       # an accepted higher neighbour
+            pend = (adj & und[None, :]).any(1)      # an undecided higher neighbour
+            acc = acc | (und & ~sup & ~pend)
+            rej = rej | (und & sup)
+        rounds += GREEDY_CHECK_EVERY
+        if not bool((valid & ~acc & ~rej).any()):
+            break
+
+    # the greedy stops after k acceptances: the first k accepted in response
+    # order (decisions before the cap do not depend on it)
+    keep = acc & (torch.cumsum(acc.to(torch.int32), 0) <= k)
+    score = torch.where(keep, resp, torch.full_like(resp, -torch.inf))
+    top_resp, idx = top_k_stable(score, k)
+    mask = torch.isfinite(top_resp)
+    points = torch.where(mask[:, None], pts[idx], 0.0)
+    return Corners(points=points, response=torch.where(mask, top_resp, 0.0), mask=mask)
+
+
+def good_features_to_track_cv2exact(img: torch.Tensor, config: GFTTConfig = GFTTConfig(),
+                                    min_distance: float | None = None) -> Corners:
+    """cv2.goodFeaturesToTrack's exact corner list on each (..., H, W)
+    image: strict quality threshold (response > quality · max), 3x3
+    dilate-compare NMS over the interior, response sort (ties to the lower
+    scan index, as ``lax.top_k``), the greedy fixpoint."""
+    h, w = img.shape[-2], img.shape[-1]
+    if min_distance is None:
+        min_distance = config.min_distance_at_720 * (h / 720.0)
+    resp = min_eig_response(img, config.block_size)
+    thresh = config.quality_level * resp.amax((-2, -1), keepdim=True)
+    ninf = torch.full_like(resp, -torch.inf)
+    cand = torch.where(resp > thresh, _nms3(resp), ninf)
+    interior = torch.zeros((h, w), dtype=torch.bool, device=img.device)
+    interior[1:-1, 1:-1] = True
+    cand = torch.where(interior, cand, ninf)
+
+    m = min(config.max_candidates, h * w)
+    top, idx = top_k_stable(cand.flatten(-2), m)
+    pts = torch.stack([(idx % w).float(), (idx // w).float()], -1)
+    valid = torch.isfinite(top)
+    lead = top.shape[:-1]
+    items = [_greedy_cv2exact(p, r, v, float(min_distance), config.max_features)
+             for p, r, v in zip(pts.reshape(-1, m, 2), top.reshape(-1, m),
+                                valid.reshape(-1, m))]
+    k = config.max_features
+    return Corners(points=torch.stack([c.points for c in items]).reshape(lead + (k, 2)),
+                   response=torch.stack([c.response for c in items]).reshape(lead + (k,)),
+                   mask=torch.stack([c.mask for c in items]).reshape(lead + (k,)))
+
+
 def good_features_to_track(img: torch.Tensor, config: GFTTConfig = GFTTConfig(),
                            min_distance: float | None = None) -> Corners:
     """Up to ``config.max_features`` corners on each (..., H, W) float image;
     every field gains the image's leading dims, and each image gives what a
     call on it alone gives (the quality threshold and the top-k are per
-    image)."""
-    if config.selection != "cell":
-        raise NotImplementedError(
-            f"gftt.selection={config.selection!r} is not ported yet "
-            "(ROADMAP Queue 1 item 14); only 'cell' is")
+    image).  ``config.selection`` picks the method (module docstring)."""
+    if config.selection == "cv2exact":
+        return good_features_to_track_cv2exact(img, config, min_distance)
     h, w = img.shape[-2], img.shape[-1]
     if min_distance is None:
         min_distance = config.min_distance_at_720 * (h / 720.0)

@@ -1,8 +1,9 @@
 """Colour conversion, bilinear and nearest resize (OpenCV conventions).
 
 Port of ``video_stabilization_tpu/ops/image.py`` (``bgr_to_gray``,
-``yuv_planes_to_bgr``, ``yuv_flat_to_bgr``, ``resize_bilinear``,
-``resize_nearest``): BT.601 gray, cv2 INTER_LINEAR sampling at
+``gray_u8_cv2exact``, ``yuv_planes_to_bgr``, ``yuv_flat_to_bgr``,
+``resize_bilinear``, ``resize_nearest``): BT.601 gray, cv2's exact integer
+u8 gray for the reference-compat referee, cv2 INTER_LINEAR sampling at
 ``(dst + 0.5)·scale − 0.5`` clamped to the border, and INTER_NEAREST at
 ``floor(dst·scale)``.  Integer downscales take the strided-slice path
 (1080 -> 360 is k = 3: a pure stride).  The YUV decode is plain tensor ops
@@ -20,6 +21,40 @@ def bgr_to_gray(img: torch.Tensor) -> torch.Tensor:
     img = img.float()
     b, g, r = img[..., 0], img[..., 1], img[..., 2]
     return 0.114 * b + 0.587 * g + 0.299 * r
+
+
+def gray_u8_cv2exact(frame_u8: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """(..., H, W, 3) uint8 BGR -> (..., out_h, out_w) float32 holding the
+    exact integer gray of cv2's u8 ``resize`` (INTER_LINEAR) then
+    ``cvtColor`` (BGR2GRAY), in integer arithmetic:
+
+    - resize at an integer downscale k per axis: odd k is a strided slice
+      at offset (k − 1)/2; even k sums the two centre taps, and one final
+      ``(sum + d/2) >> log2(d)`` rounds both axes together;
+    - gray: ``(3735 B + 19235 G + 9798 R + 16384) >> 15``.
+
+    Other ratios raise."""
+    h, w = frame_u8.shape[-3], frame_u8.shape[-2]
+    if out_h > h or h % out_h or out_w > w or w % out_w:
+        raise ValueError(f"gray_u8_cv2exact supports integer downscales only, got "
+                         f"{h}x{w} -> {out_h}x{out_w}")
+    x = frame_u8.to(torch.int32)
+    shift = 0
+    for axis, k, size in ((-3, h // out_h, out_h), (-2, w // out_w, out_w)):
+        if k == 1:
+            continue
+        ax = axis % x.dim()
+        limit = (size - 1) * k + 1
+        step = (slice(None),) * ax + (slice(None, None, k),)
+        if k % 2 == 1:
+            x = x.narrow(ax, (k - 1) // 2, limit)[step]
+        else:
+            x = x.narrow(ax, k // 2 - 1, limit)[step] + x.narrow(ax, k // 2, limit)[step]
+            shift += 1
+    if shift:
+        x = (x + (1 << (shift - 1))) >> shift
+    b, g, r = x[..., 0], x[..., 1], x[..., 2]
+    return ((3735 * b + 19235 * g + 9798 * r + (1 << 14)) >> 15).float()
 
 
 def yuv_planes_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

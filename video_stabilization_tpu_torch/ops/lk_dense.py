@@ -8,13 +8,16 @@ Port of ``video_stabilization_tpu/ops/lk_dense.py`` (``lk_track_dense``):
    a dense residual (a small sweep at the first mid level, one Newton round
    below it) refit on a regular grid;
 3. two dense Newton rounds at level 0;
-4. one bilinear sample of the final maps at the query corners.
+4. one bilinear sample of the final maps at the query corners;
+5. with ``corner_polish_iters > 0``, that many per-point Newton iterations
+   at the exact corner positions, each step clipped to a 1.5 px trust
+   region (a saturating step drops the point as independently moving).
 
 The JAX package's ``_band`` and ``_extract_bilinear_mxu`` are matrix-unit
-workarounds; here the box filter is an f32 banded matmul and the per-point
-polish (off by default) is not ported.  ``_box_same`` rounds exactly where
-the JAX version does: its input, and its intermediate before the second
-axis, to bf16.
+workarounds; here the box filter is an f32 banded matmul and the polish's
+patches one gather of the bf16-rounded image (``ops/patches.py``; the one-hot contractions copy
+bf16 entries exactly).  ``_box_same`` rounds exactly where the JAX version
+does: its input, and its intermediate before the second axis, to bf16.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from video_stabilization_tpu_torch.config import LKConfig
 from video_stabilization_tpu_torch.motion.similarity import fit_similarity_masked
 from video_stabilization_tpu_torch.ops.affine_warp import warp_affine
 from video_stabilization_tpu_torch.ops.gradients import scharr_xy
+from video_stabilization_tpu_torch.ops.patches import extract_patches
 from video_stabilization_tpu_torch.ops.warp import _inv3x3
 
 
@@ -190,6 +194,58 @@ def _sample_maps(maps: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
             + tap(1, 0) * (1 - fx) * fy + tap(1, 1) * fx * fy)
 
 
+def _extract_bilinear(img: torch.Tensor, top_left: torch.Tensor, size: int) -> torch.Tensor:
+    """(B, N, size, size) bilinear patches of the padded (B, H, W) ``img``
+    at (B, N, 2) float top-left corners (x, y): the (size + 1)² block of the
+    bf16-rounded image (``ops/patches.py``) at the corner's integer part,
+    clipped into the image, blended with the corner's fractional weights."""
+    h, w = img.shape[-2:]
+    i0 = torch.floor(top_left)
+    frac = top_left - i0
+    y0 = i0[..., 1].long().clamp(0, h - (size + 1))
+    x0 = i0[..., 0].long().clamp(0, w - (size + 1))
+    big = torch.stack([extract_patches(img[b][None], y0[b], x0[b], size + 1)[:, 0]
+                       for b in range(img.shape[0])])
+    fx = frac[..., 0][..., None, None]
+    fy = frac[..., 1][..., None, None]
+    return ((1 - fx) * (1 - fy) * big[..., :-1, :-1] + fx * (1 - fy) * big[..., :-1, 1:]
+            + (1 - fx) * fy * big[..., 1:, :-1] + fx * fy * big[..., 1:, 1:])
+
+
+def _corner_polish(img_i, img_j, points, new_pts, saturated, iters: int, win: int):
+    """``iters`` per-point Newton iterations of (B, N, 2) ``new_pts`` on the
+    level-0 pair (B, h, w), from the templates at ``points``; returns the
+    polished points and ``saturated`` with each point whose step left the
+    1.5 px trust region."""
+    from video_stabilization_tpu_torch.ops.lk import _scharr_patches, reflect_pad
+
+    pad = win + 4
+    img_i_p = reflect_pad(img_i, pad)
+    img_j_p = reflect_pad(img_j, pad)
+    half = (win - 1) / 2.0
+    ipatch_big = _extract_bilinear(img_i_p, points - (half + 1.0) + pad, win + 2)
+    pix, piy = _scharr_patches(ipatch_big)
+    ipatch = ipatch_big[..., 1:-1, 1:-1]
+    pgxx = (pix * pix).sum((-2, -1))
+    pgxy = (pix * piy).sum((-2, -1))
+    pgyy = (piy * piy).sum((-2, -1))
+    pdet = pgxx * pgyy - pgxy * pgxy
+    p_ok = pdet > 1e-12
+    pdet_s = torch.where(p_ok, pdet, torch.ones_like(pdet))
+    v = new_pts
+    for _ in range(iters):
+        r = _extract_bilinear(img_j_p, v - half + pad, win) - ipatch
+        bx = (r * pix).sum((-2, -1))
+        by = (r * piy).sum((-2, -1))
+        step = torch.stack([-(pgyy * bx - pgxy * by) / pdet_s,
+                            -(pgxx * by - pgxy * bx) / pdet_s], -1)
+        # a saturating step: the dense estimate was off by more than the
+        # clip, an independently moving point snapped to the global motion
+        saturated = saturated | (p_ok & (step.abs().amax(-1) > 1.5))
+        v = v + torch.where(p_ok[..., None], step.clamp(-1.5, 1.5), 0.0)
+    return v, saturated
+
+
 def _newton_delta(r, ix, iy, gxx, gxy, gyy, det_safe, ok, win):
     bx = _box_same(r * ix, win)
     by = _box_same(r * iy, win)
@@ -210,9 +266,6 @@ def lk_track_dense(pyr_prev: Sequence[torch.Tensor], pyr_next: Sequence[torch.Te
     batch of one."""
     from video_stabilization_tpu_torch.ops.lk import LKResult
 
-    if config.corner_polish_iters > 0:
-        raise NotImplementedError(
-            "lk.corner_polish_iters > 0 is not ported yet (ROADMAP Queue 1 item 14)")
     if pyr_prev[0].dim() == 2:
         res = lk_track_dense([p[None] for p in pyr_prev], [p[None] for p in pyr_next],
                              points[None], mask[None], config)
@@ -283,6 +336,9 @@ def lk_track_dense(pyr_prev: Sequence[torch.Tensor], pyr_next: Sequence[torch.Te
     new_pts = _apply_h(t_cur, points + d_pts)
     # independent-motion gate: a large residual delta after two Newton rounds
     saturated = d_pts.abs().amax(-1) > 1.5
+    if config.corner_polish_iters > 0:
+        new_pts, saturated = _corner_polish(img_i, img_j, points, new_pts, saturated,
+                                            config.corner_polish_iters, win)
 
     in_final = ((new_pts[..., 0] >= 0.0) & (new_pts[..., 1] >= 0.0)
                 & (new_pts[..., 0] < w0) & (new_pts[..., 1] < h0))

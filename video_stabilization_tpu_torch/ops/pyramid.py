@@ -1,6 +1,7 @@
 """Gaussian image pyramid (cv2.pyrDown) with reflect-101 borders.
 
-Port of ``video_stabilization_tpu/ops/pyramid.py``.  Taps are summed in the
+Port of ``video_stabilization_tpu/ops/pyramid.py`` (``pyr_down``,
+``build_pyramid``, ``sep_filter5``).  Taps are summed in the
 same order as the JAX package so the sums associate the same way.
 """
 
@@ -30,6 +31,12 @@ def _taps(x: torch.Tensor, kernel, n: int, axis: int, stride: int = 1) -> torch.
         sl = x.narrow(axis, k, stride * (n - 1) + 1)[idx + (slice(None, None, stride),)]
         out = out + wk * sl
     return out
+
+
+def sep_filter5(img: torch.Tensor, kernel=_K5) -> torch.Tensor:
+    """Separable 5-tap filter of (..., H, W) with reflect-101 borders."""
+    rows = _taps(_reflect101_pad(img, 2, -2), kernel, img.shape[-2], -2)
+    return _taps(_reflect101_pad(rows, 2, -1), kernel, img.shape[-1], -1)
 
 
 def pyr_down(img: torch.Tensor) -> torch.Tensor:

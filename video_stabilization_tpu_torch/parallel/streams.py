@@ -77,14 +77,15 @@ def _batched_config(config: StabilizerConfig) -> StabilizerConfig:
 def make_batched_step_fn(config: StabilizerConfig) -> Callable:
     """(carry of S streams, frames (S, Hf, Wf, C)) -> (carry, (outputs (S,
     Hf, Wf, C), valid (S,))): one frame of every stream, the streaming
-    step's semantics per stream (ECC keeps the streaming step's fallback).
+    step's semantics per stream (ECC's fallback, the referee's u8 gray and
+    host-GFTT lanes are the streaming step's).
     Requires ``config.static_mode``."""
     require_static_mode(config, "make_batched_step_fn")
     cfg = _batched_config(config)
 
     def step(carry: EngineCarry, frames: torch.Tensor):
         carry, (outputs, valid) = offline_batched_chunk_step(
-            carry, frames[:, None], cfg, ecc_warp_fallback=True)
+            carry, frames[:, None], cfg, streaming=True)
         return carry, (outputs[:, 0], valid[:, 0])
 
     return step

@@ -20,4 +20,5 @@ from video_stabilization_tpu_torch.sim.camera_engine import (  # noqa: F401
 from video_stabilization_tpu_torch.sim.trajectory import (  # noqa: F401
     make_default_texture,
     shake_trajectory,
+    smooth_pan_trajectory,
 )

@@ -9,6 +9,8 @@ trajectory equals the JAX package's.
 
 from __future__ import annotations
 
+from dataclasses import replace
+
 import numpy as np
 import torch
 
@@ -58,3 +60,19 @@ def shake_trajectory(pos_noise: np.ndarray, roll_noise: np.ndarray, base: Camera
         roll=base.roll + ar1(roll),
         focal_length=base.focal_length.expand(n),
     )
+
+
+def smooth_pan_trajectory(pos_noise: np.ndarray, roll_noise: np.ndarray, base: CameraParams,
+                          pan_per_frame: float = 0.1, shake_pos: float = 0.01,
+                          shake_roll: float = 0.5, device=None) -> CameraParams:
+    """An intentional slow lateral drift with handheld shake on top (the
+    shake from :func:`shake_trajectory`'s standard-normal noise): global
+    smoothing should keep the drift and remove the shake."""
+    shaken = shake_trajectory(pos_noise, roll_noise, base, pos_amplitude=shake_pos,
+                              roll_amplitude=shake_roll, device=device)
+    n = shaken.position.shape[0]
+    drift = torch.arange(n, dtype=torch.float32, device=shaken.position.device)
+    drift = drift * pan_per_frame * 0.01
+    pos = shaken.position.clone()
+    pos[:, 0] += drift
+    return replace(shaken, position=pos)
