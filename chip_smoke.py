@@ -1,6 +1,8 @@
-"""Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
+"""Smoke run of the PyTorch / CUDA port on the NVIDIA GPUs of one host (one
+card is enough; phase 13 takes every card there is).
 
     python3 chip_smoke.py [--seed N] [--frames N] [--lock-frames N] [--orb-frames N]
+    python3 chip_smoke.py --mesh-only    # phases 1, 2 and 13 alone: the multi-card check
 
 Phases (each prints its lines; any failure raises and the exit code is not 0):
 
@@ -61,7 +63,7 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    and frames/s, device events per batched frame beside 8 x the
    single-stream step's, and peak device memory;
 10. serving: ``serve.main`` at bench config 5's size (8 simulator streams of
-   1080x1920 rendered on the card into C420 Y4M files, 48 frames, window 30
+   1080x1920 rendered on the card into C420 Y4M files, 32 frames, window 30
    + 1 + 15, chunks of 8, GLOBAL_SMOOTHING), its files against the
    in-memory ``stabilize_streams_sharded`` on the same decoded footage
    (byte for byte through the writer's encode), the card's YUV decode
@@ -69,6 +71,7 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    loop, the wall time split (read, queueing, drain wait, drain write;
    device H2D, compute, D2H), frames/s and the device's idle share; then a
    short ``--mode orb`` run (2 streams x 16 frames) for FAST's serving path;
+   then, on the same inputs, phase 13's serving part over its mesh;
 11. the app: ``cli.app.main`` headless at its defaults (720x1280 simulator
    frames, working height 360, window 60 + 1 + 45), 96 frames with
    ``--checkpoint`` and ``--stats``, again with ``--resume`` (frame counter
@@ -92,7 +95,28 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    12e, the device time of the plain PyTorch ops of these paths (the
    perspective and shear warps, the trail, the DLT and affine fits,
    cv2exact LK and its patch extraction, cv2's exact corner list and its
-   greedy fixpoint).
+   greedy fixpoint);
+13. the sharded forms over a mesh (run after phase 9): with two or more
+   cards the slots ``serve.pick_serving_devices`` takes for config 5's 8
+   streams, one per card; with one card two slots on it (an earlier line
+   says which, and how many cards there are).  With two or more cards
+   first the warp (one image and a batch) and FAST on the last card
+   against their plain versions there, while card 0 is current.  Config 5
+   (phase 9's sizes and seeds, 16 frames) in TRANSLATION_LOCK and
+   GLOBAL_SMOOTHING through ``parallel.make_sharded_step_fn`` and
+   ``make_sharded_offline_fn`` (chunks of 8), each slot's streams rendered
+   once onto its card: each slot's outputs bit for bit against its own
+   sub-batch through the one-device batched form, every stream within phase
+   9's bound of the one-device run of all 8, 0 host syncs in a warm-up
+   call, every carry tensor on its slot's device after every call, 5 warp
+   launches per slot per call, no peer-to-peer copy in a profiled call;
+   ms per batched frame over the mesh against the one-device forms, busy ms
+   and idle share per card, peak memory per card.  Its serving part (in
+   phase 10, on phase 10's inputs): ``serve.main --files`` over the mesh,
+   its files against the in-memory ``stabilize_streams_sharded`` on the
+   same mesh byte for byte, 5 warp launches per slot and chunk, one event
+   wait per slot and chunk, no host sync in the loop; and ``--mode orb``
+   over the mesh.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -175,6 +199,8 @@ BATCHED_LAUNCHES = 5
 N_STREAMS = 8            # bench config 5 (bench.py CONFIGS[5])
 STREAM_FRAMES = 24       # its max_frames
 STREAM_CHUNK = 8         # bench.py's offline chunk for several streams
+SHARDED_FRAMES = 16      # phase 13's frames: a depth cut from phase 9's 24 (smoke time)
+MESH_ONLY_SERVE_FRAMES = 16  # --mesh-only: frames per served stream (two chunks)
 # the batched warps of each batched path: (items per launch, frames per
 # launch, launches per shape); config 5's batched step serves one frame of
 # each of the 8 streams, its offline chunk 8 frames of each.  At config 4
@@ -190,7 +216,9 @@ BATCHED_PATHS = {
 ECC_WARPS = {(1, 360, 640): ECC_ITERS + 2}   # per frame at config 4, single launches
 # phase 10: serve.main at bench config 5's size; a short ORB run for the
 # FAST kernel's serving path
-SERVE_STREAMS, SERVE_FRAMES, SERVE_CHUNK, SERVE_SIZE = 8, 48, 8, (1080, 1920)
+# (32 frames: a depth cut from 48 that keeps the smoke within half its time
+# limit once phase 13 serves the same inputs over the mesh)
+SERVE_STREAMS, SERVE_FRAMES, SERVE_CHUNK, SERVE_SIZE = 8, 32, 8, (1080, 1920)
 SERVE_ARGV = ["--simulator", str(SERVE_STREAMS), "--frames", str(SERVE_FRAMES), "--sim-size",
               "1920x1080", "--past-window", "1.0", "--future-window", "0.5", "--chunk",
               str(SERVE_CHUNK), "--mode", "smoothing"]
@@ -388,10 +416,11 @@ def mixed_transforms(b: int, rng, inside_only: bool = False) -> np.ndarray:
     return np.stack(hs)
 
 
-def phase_batched_kernel(dev, rng, single: dict) -> dict:
+def phase_batched_kernel(dev, rng, single: dict, paths: dict) -> dict:
     """The warp kernel's batches, one launch each, at every batched path's
-    shapes (BATCHED_PATHS: 16 items for an offline chunk of configs 1, 3
-    and 4; 8 for config 5's batched step, 64 for its chunk), per-item
+    shapes (``paths``: BATCHED_PATHS, 16 items for an offline chunk of
+    configs 1, 3 and 4, 8 for config 5's batched step, 64 for its chunk;
+    and the sharded paths' per-slot batches of phase 13), per-item
     borders on the output frames, a batch that mixes items inside and
     outside the envelope, against the plain version item by item (exact),
     and the device's count of the items outside.  Times a batch as the main
@@ -405,7 +434,7 @@ def phase_batched_kernel(dev, rng, single: dict) -> dict:
     counter = aw.fallback_counter(dev)
     max_err = 0.0
     times = {}
-    batches = sorted({(b,) + shape for b, _, warps in BATCHED_PATHS.values() for shape in warps})
+    batches = sorted({(b,) + shape for b, _, warps in paths.values() for shape in warps})
     for b, c, h, w in batches:
         src = torch.from_numpy(rng.uniform(0, 255, (b, h, w, c)).astype(np.float32)).to(dev)
         if c == 1:
@@ -448,7 +477,7 @@ def phase_batched_kernel(dev, rng, single: dict) -> dict:
               f"{plain_ms:.4f} ms", flush=True)
         del src, k, p
     out = {"max_abs_err_batched": max_err}
-    for path, (b, frames, warps) in BATCHED_PATHS.items():
+    for path, (b, frames, warps) in paths.items():
         per_frame = ECC_WARPS if path == "offline_config4" else {}
         px = (b * sum(n * c * h * w for (c, h, w), n in warps.items()) / frames
               + sum(n * c * h * w for (c, h, w), n in per_frame.items()))
@@ -1308,6 +1337,293 @@ def phase_streams(cfg, seed: int, dev, card: str) -> dict:
     return result
 
 
+def smoke_mesh() -> list:
+    """Phase 13's mesh: with two or more cards the slots
+    ``serve.pick_serving_devices`` takes for the N_STREAMS streams, one per
+    card; with one card two slots on it (the sharded forms' check on one
+    card: each slot's work queues on the card's one stream)."""
+    from video_stabilization_tpu_torch.serve import pick_serving_devices
+
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    if len(cards) >= 2:
+        return pick_serving_devices(cards, N_STREAMS)
+    return [cards[0], cards[0]]
+
+
+def sharded_paths(n_slots: int) -> dict:
+    """The warp's batches on the sharded paths, as BATCHED_PATHS: each slot
+    launches its N_STREAMS / n_slots streams' warps, so a batched frame of
+    the N_STREAMS streams takes n_slots launches of each shape."""
+    per = N_STREAMS // n_slots
+    return {"sharded_config5": (per, 1 / n_slots, WARPS_PER_FRAME["config1"]),
+            "offline_sharded_config5": (per * STREAM_CHUNK, STREAM_CHUNK / n_slots,
+                                        WARPS_PER_FRAME["config1"])}
+
+
+def sync_all(devices) -> None:
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+
+
+def device_split(prof) -> dict:
+    """Per card index of a profiled run: device busy ms (kernels, copies,
+    fills) and the count of each kind of copy, by the profiler's name
+    ("Memcpy HtoD (Pinned -> Device)", "Memcpy PtoP (Device -> Device)",
+    ...)."""
+    from video_stabilization_tpu_torch.utils.stage_profile import _device_us
+
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        card = out.setdefault(e.device_index, {"busy_ms": 0.0, "copies": {}})
+        card["busy_ms"] += _device_us(e) / 1e3
+        if e.name.startswith("Memcpy"):
+            card["copies"][e.name] = card["copies"].get(e.name, 0) + 1
+    return out
+
+
+def copies_of(split: dict, kind: str) -> int:
+    """Copies of a profiled run whose name holds ``kind`` ("PtoP",
+    "Pageable", ...), on every card."""
+    return sum(n for sp in split.values() for name, n in sp["copies"].items() if kind in name)
+
+
+def profiled(fn, devices):
+    """(fn's result, per-card device split, wall ms) of one profiled call."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    sync_all(devices)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        sync_all(devices)
+        wall = 1e3 * (time.perf_counter() - t0)
+    return out, device_split(prof), wall
+
+
+def misplaced(carry, mesh) -> int:
+    """Carry tensors that are not on their slot's device (metadata only)."""
+    from video_stabilization_tpu_torch.engine import map_carry
+
+    parts = carry.parts if len(mesh) > 1 else (carry,)
+    bad = []
+    for part, dev in zip(parts, mesh):
+        map_carry(lambda x: bad.append(x.device != dev), part)
+    return sum(bad)
+
+
+def phase_sharded(cfg, seed: int, mesh: list, card: str) -> dict:
+    """Phase 13: bench config 5 (N_STREAMS streams of 1080x1920, the seeds
+    of phase 9) through the sharded step and the sharded offline chunk over
+    ``mesh``, in TRANSLATION_LOCK and in GLOBAL_SMOOTHING, SHARDED_FRAMES
+    frames.  Each slot's streams are rendered once and copied to its card
+    before the runs.  Checks each slot's outputs bit for bit against its
+    own sub-batch through the one-device batched form on its card, every
+    stream against the one-device run of all N_STREAMS (phase 9's bound),
+    0 host syncs in a warm-up call, every carry tensor on its slot's device
+    after every call, BATCHED_LAUNCHES warp launches per slot per call, and
+    no peer-to-peer copy in a profiled call.  Prints ms per batched frame
+    over the mesh and on one card (host clock between synchronizations of
+    every card), busy ms and idle share per card, and peak memory per
+    card."""
+    import dataclasses
+
+    from video_stabilization_tpu_torch.config import StabilizationMode
+    from video_stabilization_tpu_torch.engine import make_offline_batched_fn
+    from video_stabilization_tpu_torch.ops import affine_warp as aw
+    from video_stabilization_tpu_torch.parallel import (
+        Sharded, init_batched_carry, init_sharded_carry, make_batched_step_fn,
+        make_sharded_offline_fn, make_sharded_step_fn, unshard)
+    from video_stabilization_tpu_torch.utils import prng, stage_profile
+
+    n_slots, per = len(mesh), N_STREAMS // len(mesh)
+    cards = sorted(set(mesh), key=lambda d: d.index)
+    dev0, n_frames = mesh[0], SHARDED_FRAMES
+    frames = stage_profile.footage(cfg, n_frames, seed, dev0, streams=N_STREAMS)
+    parts = [frames[d * per:(d + 1) * per].to(dv) for d, dv in enumerate(mesh)]
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    mesh_name = ", ".join(map(str, mesh))
+    result = {"step": {"launches": 0, "frames": 0}, "offline": {"launches": 0, "frames": 0}}
+    for mode in (StabilizationMode.TRANSLATION_LOCK, StabilizationMode.GLOBAL_SMOOTHING):
+        cfg_m = dataclasses.replace(cfg, static_mode=int(mode))
+        forms = {"step": (make_sharded_step_fn(cfg_m, mesh), make_batched_step_fn(cfg_m), 1, 4),
+                 "offline": (make_sharded_offline_fn(cfg_m, mesh),
+                             make_offline_batched_fn(cfg_m), STREAM_CHUNK, 1)}
+        for form, (sharded_fn, one_fn, k, warm) in forms.items():
+            tag = f"sharded {form} {mode.name}"
+
+            def at(x, i):       # the call's frames: one (step) or k (chunk) of each stream
+                return x[:, i] if k == 1 else x[:, i:i + k]
+
+            def fresh():
+                return init_batched_carry(cfg_m, N_STREAMS, int(mode), prng.key(seed), dev0)
+
+            def timed(fn, carry, frames_of):
+                """Every call of ``fn``; the call at ``warm - 1`` under the
+                sync check; host ms per batched frame after it."""
+                outs, per_call, bad, syncs = [], [], 0, []
+                t0 = None
+                for c, i in enumerate(range(0, n_frames, k)):
+                    before = aw.launches
+                    if c == warm - 1:
+                        (carry, (out, _)), syncs = count_syncs(lambda: fn(carry, frames_of(i)))
+                        sync_all(mesh)
+                        t0 = time.perf_counter()
+                    else:
+                        carry, (out, _) = fn(carry, frames_of(i))
+                    per_call.append(aw.launches - before)
+                    bad += misplaced(carry, mesh) if fn is sharded_fn else 0
+                    outs.append(out)
+                sync_all(mesh)
+                ms = 1e3 * (time.perf_counter() - t0) / (n_frames - warm * k)
+                return carry, outs, per_call, bad, syncs, ms
+
+            # over the mesh, each slot's streams already on its card
+            def fresh_sharded():
+                return init_sharded_carry(cfg_m, N_STREAMS, int(mode), prng.key(seed), mesh)
+
+            aw.launches = 0
+            carry, s_outs, per_call, bad, syncs, ms_mesh = timed(
+                sharded_fn, fresh_sharded(), lambda i: Sharded(tuple(at(p, i) for p in parts)))
+            launches = aw.launches
+            _, split, wall = profiled(
+                lambda: sharded_fn(carry, Sharded(tuple(at(p, n_frames - k) for p in parts))),
+                mesh)
+            # all N_STREAMS streams on one card, and each slot's sub-batch alone
+            one, one_outs, _, _, _, ms_one = timed(one_fn, fresh(), lambda i: at(frames, i))
+            _, one_split, _ = profiled(lambda: one_fn(one, at(frames, n_frames - k)), [dev0])
+            start = fresh_sharded()
+            starts = start.parts if n_slots > 1 else (start,)
+            slot_equal = 0
+            for d, dv in enumerate(mesh):
+                c_d = starts[d]
+                for c, i in enumerate(range(0, n_frames, k)):
+                    c_d, (out, _) = one_fn(c_d, at(parts[d], i))
+                    mine = s_outs[c].parts[d] if n_slots > 1 else s_outs[c]
+                    slot_equal += bool(torch.equal(out, mine))
+            n_calls = n_frames // k
+            joined = torch.cat([unshard(o, dev0) if k > 1 else unshard(o, dev0)[:, None]
+                                for o in s_outs], 1)
+            single = torch.cat(one_outs, 1) if k > 1 else torch.stack(one_outs, 1)
+            differ = against_single(joined, single)
+            del s_outs, one_outs, joined, single
+            ppp = copies_of(split, "PtoP")
+            busy = {i: sp["busy_ms"] / k for i, sp in split.items()}
+            one_busy = sum(sp["busy_ms"] for sp in one_split.values()) / k
+
+            print(f"{tag}: mesh [{mesh_name}], {N_STREAMS} streams x {n_frames} frames "
+                  f"{cfg.frame_height}x{cfg.frame_width}, {per} per slot; warp launches "
+                  f"{launches} (per call {sorted(set(per_call))}, {BATCHED_LAUNCHES} per slot "
+                  f"expected); carry tensors off their slot's device after a call: {bad}",
+                  flush=True)
+            report_syncs(tag, syncs, "call (an untimed warm-up one)")
+            print(f"{tag}: each slot equal to its own sub-batch through the one-device "
+                  f"batched form, bit for bit, in {slot_equal} of {n_slots * n_calls} slot "
+                  f"calls; vs the one-device run of all {N_STREAMS} streams, per frame at "
+                  f"most {differ[0]:.5f} of pixels differ, {differ[1]:.6f} by more than one "
+                  f"level (<= {OFFLINE_DIFFER}, {OFFLINE_OFF_BY_MORE})", flush=True)
+            print(f"{tag}: {ms_mesh:.3f} ms per batched frame over the mesh, "
+                  f"{N_STREAMS * 1e3 / ms_mesh:.1f} frames/s in all; one card "
+                  f"{ms_one:.3f} ms, {N_STREAMS * 1e3 / ms_one:.1f} frames/s (host clock, "
+                  f"every card synchronized, {n_frames - warm * k} steady frames); profiled "
+                  f"call: device busy ms per batched frame by card "
+                  + ", ".join(f"cuda:{i} {b:.3f} (idle {1 - b / ms_mesh:.3f})"
+                              for i, b in sorted(busy.items()))
+                  + f" against the unprofiled wall; one card {one_busy:.3f} (idle "
+                  f"{1 - one_busy / ms_one:.3f}); copies by card "
+                  + ", ".join(f"cuda:{i} {sp['copies']}" for i, sp in sorted(split.items()))
+                  + f", peer-to-peer {ppp}; {card}", flush=True)
+            if set(per_call) != {BATCHED_LAUNCHES * n_slots}:
+                raise AssertionError(f"{tag}: warp launches per call {per_call}, not "
+                                     f"{BATCHED_LAUNCHES} per slot")
+            if syncs or bad or ppp:
+                raise AssertionError(f"{tag}: {len(syncs)} host syncs, {bad} misplaced carry "
+                                     f"tensors, {ppp} peer-to-peer copies")
+            if slot_equal != n_slots * n_calls:
+                raise AssertionError(f"{tag}: a slot differs from its own sub-batch")
+            if not (differ[0] <= OFFLINE_DIFFER and differ[1] <= OFFLINE_OFF_BY_MORE):
+                raise AssertionError(f"{tag}: outputs differ from the one-device run: {differ}")
+            result[form]["launches"] += launches
+            result[form]["frames"] += n_frames
+            result[f"{form} {mode.name}"] = {"ms_mesh": ms_mesh, "ms_one": ms_one,
+                                             "busy": busy, "one_busy": one_busy}
+    peaks = {c: torch.cuda.max_memory_allocated(c) / 2 ** 30 for c in cards}
+    print("sharded: peak device memory per card "
+          + ", ".join(f"{c} {g:.2f} GiB" for c, g in peaks.items())
+          + f" (torch.cuda.max_memory_allocated); {card}", flush=True)
+    return result
+
+
+def serve_mesh_only(mesh: list, card: str) -> dict:
+    """Phase 13's serving part for ``--mesh-only``: SERVE_STREAMS simulator
+    streams of MESH_ONLY_SERVE_FRAMES 1080x1920 frames rendered on the
+    mesh's first card into C420 Y4M files, then :func:`serve_over_mesh`."""
+    import os
+    import shutil
+    import tempfile
+
+    from video_stabilization_tpu_torch import serve
+    from video_stabilization_tpu_torch.io.native import NativeY4MReader
+    from video_stabilization_tpu_torch.ops.image import yuv_flat_to_bgr
+
+    h, w = SERVE_SIZE
+    tmp = tempfile.mkdtemp(prefix="smoke_mesh_")
+    try:
+        inputs = serve._render_sim_streams(SERVE_STREAMS, MESH_ONLY_SERVE_FRAMES, h, w, tmp,
+                                           mesh[0])
+        footage = []
+        for path in inputs:
+            r = NativeY4MReader(path)
+            footage.append(yuv_flat_to_bgr(torch.from_numpy(
+                r.read_yuv_block(MESH_ONLY_SERVE_FRAMES)).to(mesh[0]), h, w, True))
+            r.close()
+        return serve_over_mesh(inputs, torch.stack(footage), mesh, os.path.join(tmp, "out"),
+                               card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_last_card(dev, rng) -> float:
+    """With two or more cards: the warp (one image, and a batch of config
+    5's shape that mixes items inside and outside the envelope) and FAST's
+    levels on the last card, launched while card 0 is the thread's current
+    one, against their plain versions there.  Returns the max abs error."""
+    from video_stabilization_tpu_torch.ops import affine_warp as aw
+    from video_stabilization_tpu_torch.ops import fast
+
+    torch.cuda.set_device(0)
+    counter = aw.fallback_counter(dev)
+    counter.zero_()
+    errs = []
+    src = warp_input((3, 1080, 1920), "hwc", rng, dev)
+    border = torch.from_numpy(rng.uniform(0, 255, 3).astype(np.float32)).to(dev)
+    for name in ("rot3", "rot12"):
+        h = torch.from_numpy(TRANSFORMS[name]).to(dev)
+        errs.append(float((aw.warp_affine(src, h, border)
+                           - aw.warp_affine_plain(src, h, border)).abs().max()))
+    batch = torch.from_numpy(rng.uniform(0, 255, (N_STREAMS, 1080, 1920, 3))
+                             .astype(np.float32)).to(dev)
+    hs = torch.from_numpy(mixed_transforms(N_STREAMS, rng)).to(dev)
+    errs.append(float((aw.warp_affine(batch, hs, border)
+                       - aw.warp_affine_plain(batch, hs, border)).abs().max()))
+    gathered = int(counter)
+    levels = [torch.from_numpy(np.round(rng.uniform(0, 255, s)).astype(np.float32)).to(dev)
+              for s in FAST_SHAPES]
+    errs += [float((a - b).abs().max()) for a, b in
+             zip(fast.fast_levels(levels, FAST_THRESHOLD, EDGE_THRESHOLD),
+                 fast.fast_levels_plain(levels, FAST_THRESHOLD, EDGE_THRESHOLD))]
+    err = max(errs)
+    outside = 1 + N_STREAMS // 4
+    print(f"last card {dev} (current device cuda:{torch.cuda.current_device()}): warp one "
+          f"image and a batch of {N_STREAMS} and FAST's {len(FAST_SHAPES)} levels against "
+          f"their plain versions there, max abs err {err}; gathers counted on {dev}: "
+          f"{gathered} ({outside} expected)", flush=True)
+    if not err <= min(KERNEL_TOL, FAST_TOL) or gathered != outside:
+        raise AssertionError(f"kernels on {dev}: max abs {err}, gathers {gathered}")
+    return err
+
+
 def y4m_raw_frames(path: str) -> list:
     """The raw Y|U|V bytes of every frame of a Y4M file (native reader)."""
     from video_stabilization_tpu_torch.io.native import NativeY4MReader
@@ -1336,7 +1652,7 @@ def loop_syncs(caught) -> list:
             if "called a synchronizing" in str(w.message)]
 
 
-def phase_serve(seed: int, dev, card: str) -> dict:
+def phase_serve(seed: int, dev, card: str, mesh: list, cards: str) -> dict:
     """Phase 10: the serving entry point, ``serve.main``, at bench config
     5's size (SERVE_ARGV: 8 simulator streams of 1080x1920 rendered on the
     card into C420 Y4M files, window 30 + 1 + 15, chunks of 8); then a
@@ -1347,7 +1663,8 @@ def phase_serve(seed: int, dev, card: str) -> dict:
     native reader's, warp launches per chunk, the loop's host syncs; prints
     the wall time split, frames/s and the device's idle share in the loop
     (kernel time of a profiled run of two chunks against the unprofiled
-    loop's wall per chunk)."""
+    loop's wall per chunk).  Phase 13's serving part (:func:`serve_over_mesh`)
+    runs on the same inputs, over ``mesh``."""
     import os
     import shutil
     import tempfile
@@ -1398,7 +1715,6 @@ def phase_serve(seed: int, dev, card: str) -> dict:
             r.close()
         cfg = serve._serve_config(h, w, 360, 30, 15, int(StabilizationMode.GLOBAL_SMOOTHING))
         outs, valid, _ = serve.stabilize_streams_sharded(footage, cfg, [dev], chunk=SERVE_CHUNK)
-        del footage
         n_valid = valid.sum(1).tolist()
         written, equal = [], 0
         for si, path in enumerate(inputs):
@@ -1423,6 +1739,8 @@ def phase_serve(seed: int, dev, card: str) -> dict:
         wall_per_chunk = 1e3 * run["wall_s"] / chunks
         idle = 1.0 - busy_per_chunk / wall_per_chunk
         idle_prof = 1.0 - busy_ms / (1e3 * prof_run["wall_s"])
+        sharded = serve_over_mesh(inputs, footage, mesh, os.path.join(tmp, "sharded"), cards)
+        del footage
         for path in inputs:
             os.unlink(path)
 
@@ -1455,8 +1773,8 @@ def phase_serve(seed: int, dev, card: str) -> dict:
     print(f"{tag}: wall {run['wall_s']:.3f} s: read {run['read_s']:.3f} s, queueing H2D + "
           f"decode + chunk + D2H {run['queue_s']:.3f} s, drain wait {run['wait_s']:.3f} s, "
           f"drain write {run['write_s']:.3f} s (host clock); device H2D "
-          f"{run['h2d_ms']:.2f} ms, decode + chunk {run['compute_ms']:.2f} ms, D2H "
-          f"{run['d2h_ms']:.2f} ms (CUDA events); {fps:.1f} frames/s in all, "
+          f"{sum(run['h2d_ms']):.2f} ms, decode + chunk {sum(run['compute_ms']):.2f} ms, D2H "
+          f"{sum(run['d2h_ms']):.2f} ms (CUDA events); {fps:.1f} frames/s in all, "
           f"{fps / s:.2f} per stream", flush=True)
     print(f"{tag}: device idle share in the loop {idle:.3f} (kernel time {busy_per_chunk:.2f} "
           f"ms per chunk, torch.profiler over {prof_run['chunks']} chunks, against the "
@@ -1482,7 +1800,115 @@ def phase_serve(seed: int, dev, card: str) -> dict:
     # "frames": batched frames (one of each stream), as config 5's offline path
     return {"launches": launches, "frames": frames, "chunks": chunks, "fps": fps,
             "idle": idle, "syncs": len(syncs), "fast_launches": orb_fast,
-            "fast_frames": orb_run["streams"] * orb_run["frames"]}
+            "fast_frames": orb_run["streams"] * orb_run["frames"], "sharded": sharded}
+
+
+def serve_over_mesh(inputs: list, footage: torch.Tensor, mesh: list, out_dir: str,
+                    card: str) -> dict:
+    """Phase 13's serving part: ``serve.main --files`` on phase 10's inputs
+    (SERVE_ARGV's window and chunk) over ``mesh``, its files against the
+    in-memory ``stabilize_streams_sharded`` on the same mesh (byte for byte
+    through the writer's encode), its warp launches, loop syncs and event
+    waits (one per slot and chunk); then SERVE_ORB_ARGV over ``mesh``,
+    FAST's path.  ``footage`` is the inputs decoded."""
+    import os
+    import shutil
+
+    from video_stabilization_tpu_torch import serve
+    from video_stabilization_tpu_torch.config import StabilizationMode
+    from video_stabilization_tpu_torch.ops import affine_warp as aw
+    from video_stabilization_tpu_torch.ops import fast
+    from video_stabilization_tpu_torch.parallel import unshard
+
+    argv = ["--files", *inputs, "--past-window", "1.0", "--future-window", "0.5", "--chunk",
+            str(SERVE_CHUNK), "--mode", "smoothing", "--output-dir", out_dir]
+    aw.launches = 0
+    serve.loop_sync_debug = "warn"
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            serve.main(argv, device=mesh)
+        finally:
+            serve.loop_sync_debug = None
+    run = dict(serve.last_run)
+    launches, syncs = aw.launches, loop_syncs(caught)
+    used = [torch.device(d) for d in run["devices"]]
+    s, frames, chunks = run["streams"], run["frames"], run["chunks"]
+    h, w = SERVE_SIZE
+    cfg = serve._serve_config(h, w, 360, 30, 15, int(StabilizationMode.GLOBAL_SMOOTHING))
+    outs, valid, _ = serve.stabilize_streams_sharded(footage, cfg, used, chunk=SERVE_CHUNK)
+    outs, valid = unshard(outs), unshard(valid)
+    written, equal = [], 0
+    for si, path in enumerate(inputs):
+        got = y4m_raw_frames(os.path.join(out_dir, f"stabilized_{os.path.basename(path)}"))
+        want = encoded(list(outs[si][valid[si]].numpy()), True)
+        written.append(len(got))
+        equal += sum(g == w_ for g, w_ in zip(got, want))
+    n_valid = valid.sum(1).tolist()
+    del outs
+    shutil.rmtree(out_dir)
+    # one chunk profiled (with its set-up): each slot's upload from and
+    # download into the pinned buffers, none through pageable memory or
+    # between cards
+    _, split, _ = profiled(lambda: serve.serve_files(
+        inputs, None, "smoothing", past=30, future=15, chunk=SERVE_CHUNK,
+        max_frames=SERVE_CHUNK, devices=mesh, log=lambda *a: None), used)
+    from_pinned = copies_of(split, "HtoD (Pinned")
+    to_pinned = copies_of(split, "DtoH (Device -> Pinned)")
+    to_pageable, ppp = copies_of(split, "-> Pageable"), copies_of(split, "PtoP")
+
+    fast.launches = 0
+    serve.main(SERVE_ORB_ARGV, device=mesh)
+    orb_run = dict(serve.last_run)
+    orb_fast = fast.launches
+
+    tag = "serve sharded"
+    fps = frames * s / run["wall_s"]
+    slots = len(used)
+    print(f"{tag}: serve.main --files ({s} inputs) over [{', '.join(run['devices'])}] "
+          f"({slots} slots of {s // slots} streams), {frames} frames in {chunks} chunks of "
+          f"{SERVE_CHUNK}; frames written per stream {written}, valid in memory {n_valid}; "
+          f"equal to the in-memory sharded path through the C420 encode: {equal} of "
+          f"{sum(written)}", flush=True)
+    print(f"{tag}: warp launches {launches} ({launches / chunks:.2f} per chunk, "
+          f"{BATCHED_LAUNCHES} per slot expected); host syncs in the loop flagged by "
+          f"set_sync_debug_mode('warn'): {len(syncs)}"
+          + (f" {sorted(set(syncs))}" if syncs else "")
+          + f"; event waits {run['event_waits']} ({run['event_waits'] / chunks:.0f} per chunk: "
+          "one per slot)", flush=True)
+    print(f"{tag}: one profiled chunk, copies by card "
+          + ", ".join(f"cuda:{i} {sp['copies']}" for i, sp in sorted(split.items()))
+          + f": from pinned memory {from_pinned} ({slots} uploads expected), into it "
+          f"{to_pinned} ({2 * slots}: outputs and validity), into pageable memory "
+          f"{to_pageable}, peer-to-peer {ppp}", flush=True)
+    print(f"{tag}: wall {run['wall_s']:.3f} s: read {run['read_s']:.3f} s, queueing "
+          f"{run['queue_s']:.3f} s, drain wait {run['wait_s']:.3f} s, drain write "
+          f"{run['write_s']:.3f} s (host clock); per slot, device H2D "
+          f"{[round(x, 2) for x in run['h2d_ms']]} ms, decode + chunk "
+          f"{[round(x, 2) for x in run['compute_ms']]} ms, D2H "
+          f"{[round(x, 2) for x in run['d2h_ms']]} ms (CUDA events); {fps:.1f} frames/s in "
+          f"all; {card}", flush=True)
+    print(f"{tag}: serve.main {' '.join(SERVE_ORB_ARGV)} over [{', '.join(orb_run['devices'])}]: "
+          f"{orb_run['streams']} streams x {orb_run['frames']} frames, FAST launches "
+          f"{orb_fast} ({orb_fast / (orb_run['streams'] * orb_run['frames']):.2f} per stream "
+          f"frame)", flush=True)
+    if written != n_valid or equal != sum(written):
+        raise AssertionError(f"{tag}: files differ from the in-memory sharded path "
+                             f"(written {written}, valid {n_valid}, equal {equal})")
+    if launches != BATCHED_LAUNCHES * slots * chunks:
+        raise AssertionError(f"{tag}: {launches} warp launches in {chunks} chunks")
+    if syncs or run["event_waits"] != slots * chunks:
+        raise AssertionError(f"{tag}: loop syncs {syncs}, event waits {run['event_waits']}")
+    if from_pinned < slots or to_pinned != 2 * slots or to_pageable or ppp:
+        raise AssertionError(f"{tag}: a chunk's copies: {from_pinned} from pinned memory, "
+                             f"{to_pinned} into it, {to_pageable} into pageable memory, "
+                             f"{ppp} between cards")
+    if len(orb_run["devices"]) != len(serve.pick_serving_devices(mesh, orb_run["streams"])) \
+            or orb_fast != orb_run["streams"] * orb_run["frames"]:
+        raise AssertionError(f"{tag}: the ORB run over {orb_run['devices']} launched FAST "
+                             f"{orb_fast} times")
+    return {"launches": launches, "frames": frames, "fps": fps, "syncs": len(syncs),
+            "fast_launches": orb_fast, "fast_frames": orb_run["streams"] * orb_run["frames"]}
 
 
 def phase_app(seed: int, dev, card: str) -> dict:
@@ -2048,6 +2474,10 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=64)
     ap.add_argument("--lock-frames", type=int, default=16)
     ap.add_argument("--orb-frames", type=int, default=64)
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="phases 1, 2 and 13 alone (its serving part on fresh inputs of "
+                         f"{MESH_ONLY_SERVE_FRAMES} frames): the check of a host with "
+                         "several cards")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2077,9 +2507,30 @@ def main() -> int:
           + ", ".join(f"{n} nvcc {cuda_build.build_seconds[n]:.2f} s" for n in names)
           + ")", flush=True)
 
+    mesh = smoke_mesh()
+    n_cards = torch.cuda.device_count()
+    cards = f"{card}, {n_cards} card(s)"      # beside phase 13's numbers
+    print(f"mesh of phase 13: [{', '.join(map(str, mesh))}] "
+          + ("(one slot per card)" if n_cards >= 2 else "(two slots on the one card)")
+          + f"; torch.cuda.device_count() = {n_cards}", flush=True)
+
     rng = np.random.default_rng(args.seed)
+    cfg5 = StabilizerConfig(frame_height=1080, frame_width=1920, working_height=360,
+                            past_frames=30, future_frames=15)
+    if args.mesh_only:
+        if n_cards >= 2:
+            phase_last_card(mesh[-1], rng)
+        phase_sharded(cfg5, args.seed, mesh, cards)
+        serve_mesh_only(mesh, cards)
+        print(nvidia_smi_line(), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     kern = phase_kernel(dev, rng)
-    kern.update(phase_batched_kernel(dev, rng, kern.pop("times")))
+    kern.update(phase_batched_kernel(dev, rng, kern.pop("times"),
+                                     {**BATCHED_PATHS, **sharded_paths(len(mesh))}))
+    last_err = phase_last_card(mesh[-1], rng) if n_cards >= 2 else 0.0
     cfg3 = StabilizerConfig(frame_height=720, frame_width=1280, working_height=360,
                             past_frames=30, future_frames=15)
     frame, _ = render_clip(cfg3, 1, args.seed, dev)
@@ -2110,10 +2561,9 @@ def main() -> int:
     for run in (sl, orb, sift):       # the streaming slices' footage is done with
         run.pop("footage")
         run.pop("outs")
-    cfg5 = StabilizerConfig(frame_height=1080, frame_width=1920, working_height=360,
-                            past_frames=30, future_frames=15)
     streams = phase_streams(cfg5, args.seed, dev, card)
-    served = phase_serve(args.seed, dev, card)
+    sharded = phase_sharded(cfg5, args.seed, mesh, cards)
+    served = phase_serve(args.seed, dev, card, mesh, cards)
     apps = phase_app(args.seed, dev, card)
     app_flags = phase_app_flags(args.seed, dev, card)
 
@@ -2124,7 +2574,8 @@ def main() -> int:
           f"config 4 {sift['syncs']}; per offline chunk (the warm-up one): {off1['syncs']}, "
           f"{off3['syncs']}, {off4['syncs']}; config 5, batched step and chunk: "
           f"{streams['TRANSLATION_LOCK']['syncs']} (TRANSLATION_LOCK), "
-          f"{streams['GLOBAL_SMOOTHING']['syncs']} (GLOBAL_SMOOTHING); serving loop "
+          f"{streams['GLOBAL_SMOOTHING']['syncs']} (GLOBAL_SMOOTHING), over the mesh 0 "
+          f"(phase 13 raises otherwise); serving loop "
           f"{served['syncs']} (and one event wait per chunk, the drain's); app loop per frame "
           + ", ".join(f"{k} {len(r['syncs']) / r['frames']:.2f}" for k, r in apps.items()),
           flush=True)
@@ -2156,6 +2607,15 @@ def main() -> int:
         # per batched frame of 8 streams; the serving chunk is config 5's
         # offline chunk
         "serve": {**counted(served["launches"], served), **kern["offline_config5"]},
+        # phase 13: per batched frame of the 8 streams over the mesh, each
+        # slot launching its streams' warps
+        "sharded_config5": {**counted(sharded["step"]["launches"], sharded["step"]),
+                            **kern["sharded_config5"]},
+        "offline_sharded_config5": {**counted(sharded["offline"]["launches"],
+                                              sharded["offline"]),
+                                    **kern["offline_sharded_config5"]},
+        "serve_sharded": {**counted(served["sharded"]["launches"], served["sharded"]),
+                          **kern["offline_sharded_config5"]},
         # the app's frames are config 3's size (720x1280, working height 360)
         "cli": {**counted(apps["resumed"]["warp"], apps["resumed"]), **kern["config3"]},
         "cli_orb": {**counted(apps["orb-lock"]["warp"], apps["orb-lock"]), **kern["config3"]},
@@ -2180,6 +2640,9 @@ def main() -> int:
                   "offline_config3": {**counted(off3["fast_launches"], off3), **fast_times},
                   "serve_orb": {**counted(served["fast_launches"],
                                           {"frames": served["fast_frames"]}), **fast_times},
+                  "serve_orb_sharded": {**counted(served["sharded"]["fast_launches"],
+                                                  {"frames": served["sharded"]["fast_frames"]}),
+                                        **fast_times},
                   "cli_orb": {**counted(apps["orb-lock"]["fast"], apps["orb-lock"]),
                               **fast_times}}
     record = {"kernels": [{
@@ -2188,7 +2651,7 @@ def main() -> int:
         "source": "video_stabilization_tpu_torch/csrc/affine_warp.cu",
         "replaces": "video_stabilization_tpu/ops/pallas_warp.py:65",
         **warp_paths["config1"],
-        "max_abs_err": max(kern["max_abs_err"], kern["max_abs_err_batched"]),
+        "max_abs_err": max(kern["max_abs_err"], kern["max_abs_err_batched"], last_err),
         "library_ms": None,
         "paths": warp_paths,
     }, {
@@ -2197,7 +2660,7 @@ def main() -> int:
         "source": "video_stabilization_tpu_torch/csrc/fast_score.cu",
         "replaces": "video_stabilization_tpu/ops/fast.py:47",
         **fast_paths["config3"],
-        "max_abs_err": fk["max_abs_err"],
+        "max_abs_err": max(fk["max_abs_err"], last_err),
         "library_ms": None,
         "paths": fast_paths,
     }]}

@@ -26,6 +26,17 @@ def dev():
     return torch.device("cuda", 0)
 
 
+@pytest.fixture
+def last_dev():
+    """The last of two or more cards; the thread's current card stays 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two CUDA cards, found {torch.cuda.device_count()}")
+    torch.cuda.set_device(0)
+    return torch.device("cuda", torch.cuda.device_count() - 1)
+
+
 def rigid(theta_deg, tx, ty):
     t = np.deg2rad(theta_deg)
     return np.array([[np.cos(t), -np.sin(t), tx], [np.sin(t), np.cos(t), ty], [0, 0, 1]],
@@ -593,3 +604,78 @@ def test_trail_compositor_on_the_card(dev):
     got = copy_feathered(big, bg.to(dev), h.to(dev))
     want = copy_feathered(big.cpu(), bg, h)
     assert (got.cpu() - want).abs().max() <= 0.05
+
+
+def test_warp_kernel_on_another_card(last_dev):
+    """The warp kernel on the last card, launched while card 0 is the
+    thread's current one: one image and a batch that mixes items inside and
+    outside the envelope, equal to the plain version there, with that
+    card's count of warps outside the envelope."""
+    assert torch.cuda.current_device() == 0
+    counter = aw.fallback_counter(last_dev)
+    counter.zero_()
+    src = frame((3, 1080, 1920), "hwc", last_dev)
+    border = torch.tensor([10.0, 20.0, 30.0], device=last_dev)
+    for theta in (3.0, 12.0):
+        h = torch.from_numpy(rigid(theta, 2.1, -1.4)).to(last_dev)
+        got = aw.warp_affine(src, h, border)
+        assert got.device == last_dev
+        assert torch.equal(got, aw.warp_affine_plain(src, h, border))
+    hs = mixed_batch(8, last_dev)
+    batch = torch.from_numpy(np.random.default_rng(1).uniform(0, 255, (8, 360, 640))
+                             .astype(np.float32)).to(last_dev)
+    assert torch.equal(aw.warp_affine(batch, hs, 0.0), aw.warp_affine_plain(batch, hs, 0.0))
+    assert int(counter) == 1 + 2
+    assert torch.cuda.current_device() == 0
+
+
+def test_fast_kernel_on_another_card(last_dev):
+    """FAST's levels on the last card, launched while card 0 is current,
+    equal to the plain version there."""
+    rng = np.random.default_rng(7)
+    imgs = [torch.from_numpy(np.round(rng.uniform(0, 255, shape)).astype(np.float32))
+            .to(last_dev) for shape in LEVEL_SHAPES]
+    out = fast.fast_levels(imgs, 20.0, 31)
+    for a, b in zip(out, fast.fast_levels_plain(imgs, 20.0, 31)):
+        assert a.device == last_dev and torch.equal(a, b)
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.parametrize("cards", ["one card twice", "two cards"])
+def test_sharded_chunk_matches_each_slot(dev, cards):
+    """The sharded offline chunk of 4 streams over two slots (card 0 twice,
+    or cards 0 and 1) equals each slot's own sub-batch of 2 streams through
+    the one-device stream-batched chunk, outputs and carry bit for bit; the
+    carry stays on its slots' cards, and each call launches the warp 5
+    times per slot."""
+    from video_stabilization_tpu_torch.config import StabilizationMode, StabilizerConfig
+    from video_stabilization_tpu_torch.engine import make_offline_batched_fn, map_carry
+    from video_stabilization_tpu_torch.parallel import (
+        Sharded, init_batched_carry, make_sharded_offline_fn, make_stream_mesh, shard_carry)
+    from video_stabilization_tpu_torch.utils import prng
+
+    if cards == "two cards" and torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two CUDA cards, found {torch.cuda.device_count()}")
+    mesh = make_stream_mesh([dev, dev] if cards == "one card twice" else ["cuda:0", "cuda:1"])
+    m = StabilizationMode.TRANSLATION_LOCK
+    cfg = StabilizerConfig(past_frames=4, future_frames=2, working_height=120,
+                           frame_height=240, frame_width=320, static_mode=int(m))
+    clips = torch.stack([small_clip(dev, 6, seed=s) for s in range(4)])   # (S, T, H, W, C)
+    sharded = make_sharded_offline_fn(cfg, mesh)
+    carry = shard_carry(init_batched_carry(cfg, 4, int(m), prng.key(3), dev), mesh)
+    parts = [clips[2 * d:2 * d + 2].to(d_) for d, d_ in enumerate(mesh)]
+    chunk = make_offline_batched_fn(cfg)
+    alone = [map_carry(torch.clone, c) for c in carry.parts]
+    for i in (0, 3):
+        before = aw.launches
+        carry, (out, _) = sharded(carry, Sharded(tuple(p[:, i:i + 3] for p in parts)))
+        assert aw.launches - before == 5 * len(mesh)
+        for d, d_ in enumerate(mesh):
+            alone[d], (want, _) = chunk(alone[d], parts[d][:, i:i + 3])
+            assert out.parts[d].device == d_ and torch.equal(out.parts[d], want)
+            devices = set()
+            map_carry(lambda x: devices.add(x.device), carry.parts[d])
+            assert devices == {d_}
+    for d in range(len(mesh)):
+        for name in ("last_h", "transforms", "accum_h", "corners_prev", "frames"):
+            assert torch.equal(getattr(carry.parts[d], name), getattr(alone[d], name)), name

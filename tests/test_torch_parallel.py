@@ -2,8 +2,10 @@
 engine/offline.py::make_offline_batched_fn) against the JAX package's and
 against the port's own single-stream step.
 
-Mirrors tests/test_parallel.py (TestBatchedStep, the one-device cases of
-TestShardedStep) and the batched parts of tests/test_offline.py at
+Mirrors tests/test_parallel.py (TestBatchedStep, TestShardedStep on
+one-device meshes and on meshes of 2, 4 and 8 "cpu" slots, bit for bit
+against the one-device batched forms) and the batched parts of
+tests/test_offline.py at
 ``tiny_config()``'s size.  Two JAX functions are compiled, once each: the
 batched step in GLOBAL_SMOOTHING and the stream-batched offline chunk in
 ACCUMULATED_FULL_LOCK (two streams, K = 3), which serves both the offline
@@ -38,8 +40,9 @@ from video_stabilization_tpu_torch.config import config_from_fields
 from video_stabilization_tpu_torch.engine import (
     Stabilizer, carry_to_numpy, map_carry, offline_batched_chunk_step, offline_chunk_step)
 from video_stabilization_tpu_torch.parallel import (
-    carry_stream, init_batched_carry, make_batched_scan_fn, make_batched_step_fn,
-    make_sharded_offline_fn, make_sharded_step_fn, make_stream_mesh, shard_carry)
+    Sharded, carry_stream, init_batched_carry, init_sharded_carry, make_batched_scan_fn,
+    make_batched_step_fn, make_sharded_offline_fn, make_sharded_step_fn, make_stream_mesh,
+    shard_carry, unshard)
 from video_stabilization_tpu_torch.engine import make_offline_batched_fn
 from video_stabilization_tpu_torch.sim import (
     DEFAULT_APP_PARAMS, make_default_texture, render_frame, shake_trajectory)
@@ -53,6 +56,8 @@ M = StabilizationMode
 N_STREAMS, N_FRAMES = 4, 6
 ACCUM = dataclasses.replace(tiny_config(), static_mode=int(M.ACCUMULATED_FULL_LOCK))
 MAX_DIFFER = 1e-3        # share of pixels off by one level (tests/test_parallel.py)
+SHARDED_STREAMS = 8      # streams of the sharded tests: one per slot on 8 slots
+SLOTS = [2, 4, 8]        # mesh sizes of the sharded tests, "cpu" repeated
 
 
 def assert_frames_close(a, b, where=""):
@@ -64,21 +69,32 @@ def assert_frames_close(a, b, where=""):
     assert (diff > 0).mean() < MAX_DIFFER, f"{where}: {(diff > 0).mean():.5f} of pixels differ"
 
 
-@pytest.fixture(scope="module")
-def stream_frames():
-    """(T, S, H, W, 3) u8: four streams of six shaky frames, one trajectory
-    seed each, over one texture (the port's simulator; both packages take
-    the same frames)."""
+def render_streams(n_streams, n_frames=N_FRAMES):
+    """(T, S, H, W, 3) u8: ``n_streams`` streams of shaky frames, stream s
+    from trajectory seed 10 + s, over one texture (the port's simulator;
+    both packages take the same frames)."""
     tex = torch.from_numpy(make_default_texture(np.random.default_rng(0), 128))
     streams = []
-    for s in range(N_STREAMS):
+    for s in range(n_streams):
         rng = np.random.default_rng(10 + s)
-        traj = shake_trajectory(rng.standard_normal((N_FRAMES, 3)),
-                                rng.standard_normal(N_FRAMES), DEFAULT_APP_PARAMS,
+        traj = shake_trajectory(rng.standard_normal((n_frames, 3)),
+                                rng.standard_normal(n_frames), DEFAULT_APP_PARAMS,
                                 pos_amplitude=0.003, roll_amplitude=0.3)
         streams.append(np.stack([render_frame(tex, traj[i], FH, FW).numpy()
-                                 for i in range(N_FRAMES)]))
+                                 for i in range(n_frames)]))
     return np.stack(streams, 1)
+
+
+@pytest.fixture(scope="module")
+def stream_frames():
+    """Four streams of six frames (:func:`render_streams`)."""
+    return render_streams(N_STREAMS)
+
+
+@pytest.fixture(scope="module")
+def eight_streams():
+    """Eight streams of six frames, as the JAX tests' 8-device mesh takes."""
+    return render_streams(SHARDED_STREAMS)
 
 
 @pytest.fixture(scope="module")
@@ -281,17 +297,103 @@ def test_sharded_offline_matches_streaming(stream_frames):
     assert co.n.tolist() == [k] * N_STREAMS
 
 
-@pytest.mark.parametrize("make", ["step", "offline", "carry"])
-def test_mesh_of_two_devices_raises(make):
+def carries_equal(a, b):
+    """Every tensor of two (unsharded) carries equal, bit for bit."""
+    same = []
+    map_carry(lambda x, y: same.append(torch.equal(x, y)), a, b)
+    return all(same)
+
+
+@pytest.mark.parametrize("n_slots", SLOTS)
+def test_sharded_step_matches_batched_on_slots(eight_streams, n_slots):
+    """TestShardedStep::test_sharded_matches_batched on meshes of 2, 4 and 8
+    "cpu" slots: the sharded step of eight streams equals the one-device
+    batched step of all eight bit for bit, outputs, validity and carry, on
+    every frame; the carry stays ``Sharded`` on its slots."""
     cfg = config_from_fields(tiny_config())
-    mesh = make_stream_mesh(["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 15"):
-        if make == "step":
-            make_sharded_step_fn(cfg, mesh)
-        elif make == "offline":
-            make_sharded_offline_fn(cfg, mesh)
-        else:
-            shard_carry(port_carry(tiny_config(), 2, 0, 0), mesh)
+    mesh = make_stream_mesh(["cpu"] * n_slots)
+    sstep, bstep = make_sharded_step_fn(cfg, mesh), make_batched_step_fn(cfg)
+    cs = shard_carry(port_carry(tiny_config(), SHARDED_STREAMS, 0, 2), mesh)
+    cb = port_carry(tiny_config(), SHARDED_STREAMS, 0, 2)
+    for t in range(4):
+        frames = torch.from_numpy(eight_streams[t])
+        cs, (outs, valid_s) = sstep(cs, frames)
+        cb, (outb, valid_b) = bstep(cb, frames)
+        assert isinstance(cs, Sharded) and len(cs.parts) == n_slots
+        assert [tuple(o.shape) for o in outs.parts] == \
+            [(SHARDED_STREAMS // n_slots, FH, FW, 3)] * n_slots
+        assert torch.equal(unshard(outs), outb), f"frame {t}"
+        assert torch.equal(unshard(valid_s), valid_b)
+    assert carries_equal(unshard(cs), cb)
+
+
+@pytest.mark.parametrize("n_slots", SLOTS)
+def test_sharded_offline_matches_batched_on_slots(eight_streams, n_slots):
+    """TestShardedStep's offline case on meshes of 2, 4 and 8 "cpu" slots:
+    two K = 3 chunks of eight streams through the sharded chunk equal the
+    one-device stream-batched chunk of all eight bit for bit."""
+    cfg = config_from_fields(tiny_config())
+    mesh = make_stream_mesh(["cpu"] * n_slots)
+    soff, boff = make_sharded_offline_fn(cfg, mesh), make_offline_batched_fn(cfg)
+    cs = shard_carry(port_carry(tiny_config(), SHARDED_STREAMS, 0, 3), mesh)
+    cb = port_carry(tiny_config(), SHARDED_STREAMS, 0, 3)
+    for i in (0, 3):
+        chunk = torch.from_numpy(np.swapaxes(eight_streams[i:i + 3], 0, 1))
+        cs, (outs, valid_s) = soff(cs, chunk)
+        cb, (outb, valid_b) = boff(cb, chunk)
+        assert torch.equal(unshard(outs), outb), f"chunk at {i}"
+        assert torch.equal(unshard(valid_s), valid_b)
+    assert carries_equal(unshard(cs), cb)
+    assert unshard(cs.parts[0].n).tolist() == [6] * (SHARDED_STREAMS // n_slots)
+
+
+@pytest.mark.parametrize("n_slots", SLOTS)
+def test_shard_carry_on_slots(n_slots):
+    """``shard_carry`` gives slot d streams d·S/D to (d+1)·S/D − 1 as
+    copies; ``unshard`` joins them back, ``carry_stream`` finds stream s in
+    its slot, and ``map_carry`` maps part by part; ``init_sharded_carry``,
+    which makes each part on its slot's device, equals it."""
+    carry = port_carry(tiny_config(), SHARDED_STREAMS, 0, 9)
+    mesh = make_stream_mesh(["cpu"] * n_slots)
+    sharded = shard_carry(carry, mesh)
+    per = SHARDED_STREAMS // n_slots
+    assert isinstance(sharded, Sharded) and len(sharded.parts) == n_slots
+    for d, part in enumerate(sharded.parts):
+        assert torch.equal(part.key, carry.key[d * per:(d + 1) * per])
+        assert part.frames.data_ptr() != carry.frames.data_ptr()
+    assert carries_equal(unshard(sharded), carry)
+    for s in (0, per, SHARDED_STREAMS - 1):
+        assert carries_equal(carry_stream(sharded, s), carry_stream(carry, s))
+    doubled = map_carry(lambda x: x * 2 if x.is_floating_point() else x, sharded)
+    assert isinstance(doubled, Sharded)
+    assert torch.equal(unshard(doubled).last_h, carry.last_h * 2)
+    made = init_sharded_carry(config_from_fields(tiny_config()), SHARDED_STREAMS, 0,
+                              prng.key(9), mesh)
+    assert all(carries_equal(a, b) for a, b in zip(made.parts, sharded.parts))
+
+
+def test_sharding_refuses_uneven_streams_and_wrong_placement():
+    """Streams that do not split evenly over the slots raise ``ValueError``
+    (as JAX's ``NamedSharding`` does), in ``shard_carry`` and for frames;
+    so do a plain carry on a mesh of several slots, a sharded carry on a
+    mesh of another size, and a slot's carry off its device."""
+    cfg = config_from_fields(tiny_config())
+    carry = port_carry(tiny_config(), 6, 0, 0)
+    with pytest.raises(ValueError, match="6 streams do not split evenly over a mesh of 4"):
+        shard_carry(carry, ["cpu"] * 4)
+    mesh = make_stream_mesh(["cpu"] * 3)
+    step = make_sharded_step_fn(cfg, mesh)
+    sharded = shard_carry(carry, mesh)
+    with pytest.raises(ValueError, match="4 streams do not split evenly over a mesh of 3"):
+        step(sharded, torch.zeros((4, FH, FW, 3), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="shard_carry it"):
+        step(carry, torch.zeros((6, FH, FW, 3), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="shard_carry it"):
+        make_sharded_step_fn(cfg, ["cpu"] * 2)(sharded, torch.zeros((6, FH, FW, 3),
+                                                                    dtype=torch.uint8))
+    moved = Sharded(sharded.parts[:2] + (map_carry(lambda x: x.to("meta"), sharded.parts[2]),))
+    with pytest.raises(ValueError, match="slot 2: carry on meta"):
+        step(moved, torch.zeros((6, FH, FW, 3), dtype=torch.uint8))
 
 
 @pytest.mark.parametrize("make", [make_batched_step_fn, make_batched_scan_fn,

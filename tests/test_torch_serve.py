@@ -30,6 +30,7 @@ from video_stabilization_tpu_torch.io import VideoWriter
 from video_stabilization_tpu_torch.io.native import NativeY4MReader
 from video_stabilization_tpu_torch.io.video import encode_y4m_planes
 from video_stabilization_tpu_torch.ops.image import yuv_flat_to_bgr
+from video_stabilization_tpu_torch.parallel import Sharded, unshard
 from video_stabilization_tpu_torch.sim import (
     DEFAULT_APP_PARAMS, make_default_texture, render_frame, shake_trajectory)
 from test_parallel import FH, FW, tiny_config
@@ -94,9 +95,9 @@ def decoded_footage(paths):
     return torch.stack(out)
 
 
-def port_serve(paths, out_dir, mode="smoothing", **kw):
+def port_serve(paths, out_dir, mode="smoothing", devices=("cpu",), **kw):
     return serve.serve_files(paths, str(out_dir), mode, chunk=CHUNK,
-                             config=config_from_fields(tiny_config()), devices=["cpu"],
+                             config=config_from_fields(tiny_config()), devices=devices,
                              log=quiet, **kw)
 
 
@@ -180,11 +181,32 @@ def test_pick_serving_devices_matches_jax(n_devices, n_streams):
         jserve.pick_serving_devices(devices, n_streams)
 
 
-def test_mesh_of_two_devices_raises(clips):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        serve.serve_files(clips, None, "smoothing", chunk=CHUNK,
-                          config=config_from_fields(tiny_config()),
-                          devices=["cpu", "cpu"], log=quiet)
+def test_serve_files_over_two_slots_matches_in_memory(clips, tmp_path):
+    """``serve_files`` over a mesh of two "cpu" slots, one stream each: the
+    files equal the in-memory ``stabilize_streams_sharded`` on the same mesh
+    byte for byte, and the one-slot run's files; ``last_run`` names the
+    mesh and splits the device times per slot."""
+    two = ["cpu", "cpu"]
+    done, _ = port_serve(clips, tmp_path / "two", devices=two)
+    assert done == N_FRAMES
+    run = serve.last_run
+    assert run["devices"] == two and run["event_waits"] == 0
+    assert [len(run[k]) for k in ("h2d_ms", "compute_ms", "d2h_ms")] == [2, 2, 2]
+    port_serve(clips, tmp_path / "one")
+    cfg = dataclasses.replace(config_from_fields(tiny_config()), frame_height=FH,
+                              frame_width=FW)
+    outs, valid, carry = serve.stabilize_streams_sharded(decoded_footage(clips), cfg, two,
+                                                         chunk=CHUNK)
+    assert isinstance(outs, Sharded) and len(carry.parts) == 2
+    outs, valid = unshard(outs), unshard(valid)
+    for s, p in enumerate(clips):
+        name = f"stabilized_{os.path.basename(p)}"
+        got = raw_frames(str(tmp_path / "two" / name))
+        assert got == raw_frames(str(tmp_path / "one" / name)), name
+        want = outs[s][valid[s]].numpy()
+        assert len(got) == len(want) == N_FRAMES
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g == encode_y4m_planes(w, True), f"stream {s} frame {i}"
 
 
 def test_in_memory_path_checks():
@@ -213,7 +235,19 @@ def test_serve_main_simulator(tmp_path):
                       keep_inputs=True) == 0
     inputs = serve.last_run["inputs"]
     assert len(inputs) == 1 and Path(inputs[0]).exists()
+    assert serve.last_run["devices"] == ["cpu"]
     NativeY4MReader(inputs[0]).close()
     for p in inputs:
         os.unlink(p)
     os.rmdir(os.path.dirname(inputs[0]))
+
+
+def test_serve_main_over_a_mesh(tmp_path):
+    """``main`` serves over the mesh it is given: two streams over two
+    "cpu" slots."""
+    out = tmp_path / "out"
+    assert serve.main(["--simulator", "2", "--frames", "2", "--sim-size", "160x120",
+                       "--chunk", "2", "--working-height", "100", "--output-dir", str(out)],
+                      device=["cpu", "cpu"]) == 0
+    assert serve.last_run["devices"] == ["cpu", "cpu"] and serve.last_run["frames"] == 2
+    assert len(read_frames(str(out / "stabilized_stream1.y4m"))) == 2

@@ -20,7 +20,8 @@ Subpackages
   Hamming matching.
 - ``engine`` : carry, per-frame step, offline chunks, smoothing,
   registration lock, ``Stabilizer``.
-- ``parallel``: many streams on one card (a stream dimension in the carry).
+- ``parallel``: many streams: a stream dimension in the carry, sharded over
+  a mesh of cards.
 - ``sim``    : the floor-texture camera simulator with analytic truth.
 - ``io``     : frame sources and sinks, the native Y4M reader and rings.
 - ``cli``    : the application (``python -m video_stabilization_tpu_torch.cli``).

@@ -47,6 +47,8 @@
 
 #include <climits>
 
+#include "launch_device.cuh"
+
 namespace {
 
 constexpr int kTileX = 64;
@@ -358,15 +360,18 @@ __global__ void __launch_bounds__(kThreads, 4) affine_warp_kernel(WarpArgs args)
 // border for all), or null for `border_value`; `fallbacks` a device int the
 // kernel adds one to for each item that takes the gather.  1 <= batch <=
 // 65535 (the grid's z extent), else cudaErrorInvalidValue and no launch.
-// Returns cudaGetLastError() after the launch.
+// The launch runs with `device`, the device of the tensors and of `stream`,
+// current (launch_device.cuh).  Returns cudaGetLastError() after the launch.
 extern "C" int vstab_affine_warp(const float* src, float* out, const float* hinv,
                                  const float* border, float border_value, int* fallbacks,
                                  long long s_b, long long s_c, long long s_y, long long s_x,
                                  long long o_b, long long o_c, long long o_y, long long o_x,
                                  long long border_stride, int batch,
                                  int c, int h, int w, int projective_fallback,
-                                 void* stream) {
+                                 int device, void* stream) {
   if (batch < 1 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const LaunchDevice on(device);
+  if (on.error() != cudaSuccess) return static_cast<int>(on.error());
   WarpArgs a;
   a.src = src;
   a.out = out;

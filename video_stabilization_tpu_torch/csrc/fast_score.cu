@@ -42,6 +42,8 @@
 
 #include <math_constants.h>
 
+#include "launch_device.cuh"
+
 namespace {
 
 constexpr int kMaxLevels = 16;
@@ -179,11 +181,12 @@ __global__ void __launch_bounds__(kTileX * kThreadsY) fast_levels_kernel(Levels 
 // (hs[i], ws[i]) into outs[i], on `stream`.  `nms` turns on the 3x3
 // non-maximum suppression; `edge` zeroes every pixel within that many pixels
 // of the border (0: none).  The host arrays are packed into the kernel's
-// parameters, so nothing is copied to the device.  Returns
-// cudaGetLastError() after the launch.
+// parameters, so nothing is copied to the device.  The launch runs with
+// `device`, the device of the images and of `stream`, current
+// (launch_device.cuh).  Returns cudaGetLastError() after the launch.
 extern "C" int vstab_fast_levels(const float* const* imgs, float* const* outs, const int* hs,
                                  const int* ws, int n, float threshold, int edge, int nms,
-                                 void* stream) {
+                                 int device, void* stream) {
   if (n < 1 || n > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
   Levels lv;
   lv.n = n;
@@ -201,6 +204,8 @@ extern "C" int vstab_fast_levels(const float* const* imgs, float* const* outs, c
     lv.first_tile[i + 1] =
         lv.first_tile[i] + lv.tiles_x[i] * ((hs[i] + kTileY - 1) / kTileY);
   }
+  const LaunchDevice on(device);
+  if (on.error() != cudaSuccess) return static_cast<int>(on.error());
   const dim3 block(kTileX, kThreadsY);
   fast_levels_kernel<<<lv.first_tile[n], block, 0, static_cast<cudaStream_t>(stream)>>>(lv);
   return static_cast<int>(cudaGetLastError());

@@ -31,7 +31,9 @@ from video_stabilization_tpu_torch.engine.stabilizer import (  # noqa: F401
 )
 from video_stabilization_tpu_torch.engine.state import (  # noqa: F401
     EngineCarry,
+    Sharded,
     carry_stream,
     init_carry,
     map_carry,
+    unshard,
 )

@@ -21,7 +21,8 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-from video_stabilization_tpu_torch.engine.state import EngineCarry, RegistrationRef
+from video_stabilization_tpu_torch.engine.state import (
+    EngineCarry, RegistrationRef, Sharded, unshard)
 
 
 def _leaves(obj, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
@@ -76,7 +77,12 @@ def carry_from_numpy(arrays: Dict[str, np.ndarray], device) -> EngineCarry:
 
 def save_carry(path: str, carry: EngineCarry) -> None:
     """Write ``carry`` (of one stream or of S) to ``path`` as an ``.npz``:
-    ``leaf_i`` in leaf order, the key as its uint32 words, ``__meta__``."""
+    ``leaf_i`` in leaf order, the key as its uint32 words, ``__meta__``.
+    A ``Sharded`` carry writes the file of the same carry unsharded, its
+    streams in order; :func:`load_carry` then ``parallel.shard_carry``
+    restores it (the JAX package's "leaves re-sharded by the caller")."""
+    if isinstance(carry, Sharded):
+        carry = unshard(carry)
     arrays, meta = {}, []
     for i, (name, leaf) in enumerate(_leaves(carry)):
         arr = leaf.detach().cpu().numpy()

@@ -12,6 +12,9 @@ of full-resolution frames every step.
 A carry of S streams (``parallel/streams.py``) has a leading (S,) on every
 tensor; :func:`map_carry` maps a function over the tensors of one or more
 carries (or of their parts), as ``jax.tree.map`` does for the JAX carry.
+Sharded over a mesh of D devices, a carry, or a step's outputs, is a
+:class:`Sharded` value: D parts of S/D streams each, one per device;
+:func:`unshard` brings one to a single device in stream order.
 """
 
 from __future__ import annotations
@@ -120,6 +123,30 @@ def map_carry(fn: Callable, *carries):
 
 
 def carry_stream(carry, s: int):
-    """Stream ``s`` of a batched carry as a carry of its own: a copy, so a
-    step on it leaves the batched carry (and its frame ring) untouched."""
+    """Stream ``s`` of a batched carry (or of a :class:`Sharded` one) as a
+    carry of its own: a copy, so a step on it leaves the batched carry (and
+    its frame ring) untouched."""
+    if isinstance(carry, Sharded):
+        per = carry.parts[0].n.shape[0]
+        return carry_stream(carry.parts[s // per], s % per)
     return map_carry(lambda x: x[s].clone(), carry)
+
+
+@dataclass(frozen=True)
+class Sharded:
+    """A stream-sharded value over a mesh of D devices
+    (``parallel/streams.py``): ``parts[d]``, on the mesh's device d, holds
+    streams ``d·S/D`` to ``(d+1)·S/D − 1`` of the S, each part a batched
+    carry or a tensor with a leading stream dimension.  :func:`map_carry`
+    maps over it part by part; :func:`unshard` joins the parts."""
+
+    parts: tuple
+
+
+def unshard(value, device="cpu"):
+    """``value`` (a tensor, a carry, or a :class:`Sharded` one of either)
+    on ``device`` with its streams in order: the parts of a Sharded value
+    are moved there and joined along the stream dimension."""
+    if isinstance(value, Sharded):
+        return map_carry(lambda *xs: torch.cat([x.to(device) for x in xs]), *value.parts)
+    return map_carry(lambda x: x.to(device), value)

@@ -58,7 +58,7 @@ def _kernel_lib():
         lib = load_kernel("affine_warp")
         fn = lib.vstab_affine_warp
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_void_p]
-                       + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                       + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -69,6 +69,8 @@ def fallback_counter(device) -> torch.Tensor:
     that took the projective gather.  A caller zeroes it (``.zero_()``)
     before the run it accounts for and reads it once after."""
     device = torch.device(device)
+    if device.type == "cuda" and device.index is None:     # plain "cuda": the current card
+        device = torch.device("cuda", torch.cuda.current_device())
     if device not in _fallback_counters:
         _fallback_counters[device] = torch.zeros(1, dtype=torch.int32, device=device)
     return _fallback_counters[device]
@@ -300,13 +302,13 @@ def _launch(src: torch.Tensor, hinv: torch.Tensor, border: torch.Tensor | None,
     s_c = src.stride(3) if src.dim() == 4 else 0
     o_b, o_y, o_x = out.stride(0), out.stride(1), out.stride(2)
     o_c = out.stride(3) if out.dim() == 4 else 0
-    fn = _kernel_lib().vstab_affine_warp
-    with torch.cuda.device(dev):
-        err = fn(src.data_ptr(), out.data_ptr(), hinv.data_ptr(),
-                 border.data_ptr() if border is not None else None, border_scalar,
-                 fallback_counter(dev).data_ptr(), s_b, s_c, s_y, s_x, o_b, o_c, o_y, o_x,
-                 border_stride, bsz, c, hh, ww, int(projective_fallback),
-                 torch.cuda.current_stream(dev).cuda_stream)
+    # the entry point makes the tensors' device current for the launch
+    err = _kernel_lib().vstab_affine_warp(
+        src.data_ptr(), out.data_ptr(), hinv.data_ptr(),
+        border.data_ptr() if border is not None else None, border_scalar,
+        fallback_counter(dev).data_ptr(), s_b, s_c, s_y, s_x, o_b, o_c, o_y, o_x,
+        border_stride, bsz, c, hh, ww, int(projective_fallback), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"affine_warp launch failed: CUDA error {err}")
     global launches

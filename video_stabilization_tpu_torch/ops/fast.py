@@ -51,7 +51,7 @@ def _kernel_lib():
         fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
                        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
                        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -130,14 +130,14 @@ def _launch(imgs, threshold: float, edge: int, nms: bool) -> list:
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     outs = [part.view(img.shape) for part, img in zip(flat.split(sizes), imgs)]
     n = len(imgs)
-    fn = _kernel_lib().vstab_fast_levels
-    with torch.cuda.device(dev):
-        err = fn((ctypes.c_void_p * n)(*[img.data_ptr() for img in imgs]),
-                 (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs]),
-                 (ctypes.c_int * n)(*[img.shape[0] for img in imgs]),
-                 (ctypes.c_int * n)(*[img.shape[1] for img in imgs]),
-                 n, float(threshold), int(edge), int(nms),
-                 torch.cuda.current_stream(dev).cuda_stream)
+    # the entry point makes the images' device current for the launch
+    err = _kernel_lib().vstab_fast_levels(
+        (ctypes.c_void_p * n)(*[img.data_ptr() for img in imgs]),
+        (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs]),
+        (ctypes.c_int * n)(*[img.shape[0] for img in imgs]),
+        (ctypes.c_int * n)(*[img.shape[1] for img in imgs]),
+        n, float(threshold), int(edge), int(nms), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fast_levels launch failed: CUDA error {err}")
     global launches

@@ -1,4 +1,5 @@
-"""Stream-parallel execution: many independent streams on one card.
+"""Stream-parallel execution: many independent streams, on one card or
+sharded over several.
 
 Port of ``video_stabilization_tpu/parallel/streams.py``.  The JAX package
 vmaps the per-frame step over streams and shards the stream axis over a
@@ -18,9 +19,19 @@ The port branches on a host mode (``config.static_mode``), so every batched
 form requires it and raises without: a batch of streams in mixed modes has
 no counterpart of the JAX vmap's all-branches select.
 
-Sharding: the port runs on one card.  The sharded functions are the
-one-device case (a "mesh" is a list of devices, :func:`make_stream_mesh`);
-a mesh of more than one device raises ``NotImplementedError``.
+Sharding: a mesh is a list of devices (:func:`make_stream_mesh`), one
+slot per entry.  :func:`shard_carry` splits a carry of S streams into D
+contiguous slices of S/D streams, one per slot, and the sharded functions
+run the batched forms on each slot's slice on its own device, as the JAX
+package shards the stream axis over a 1-D mesh.  Streams never interact,
+so nothing moves between devices: a slot's carry, frames and outputs stay
+on its device, with no collective.  One host thread enqueues every slot's
+work before it waits on any (the forms make no host sync), so the devices
+compute at once as far as the host enqueues a slot faster than a device
+computes one.  On a mesh of more than one slot the carry and the outputs
+are :class:`~video_stabilization_tpu_torch.engine.state.Sharded`, with one
+part per slot; :func:`unshard` brings them to one device in stream order.
+A one-slot mesh keeps the plain carry and tensors.
 """
 
 from __future__ import annotations
@@ -38,13 +49,10 @@ from video_stabilization_tpu_torch.engine.offline import (
     offline_batched_chunk_step,
     require_static_mode,
 )
-from video_stabilization_tpu_torch.engine.state import EngineCarry, init_carry, map_carry
+from video_stabilization_tpu_torch.engine.state import EngineCarry, Sharded, init_carry, map_carry
 from video_stabilization_tpu_torch.utils import prng
 
 STREAM_AXIS = "streams"
-
-_MULTI_DEVICE = ("a stream mesh of more than one device is not ported yet (ROADMAP Queue 1 "
-                 "item 15); the port runs the streams on one device")
 
 
 def init_batched_carry(config: StabilizerConfig, n_streams: int, mode: int,
@@ -53,8 +61,14 @@ def init_batched_carry(config: StabilizerConfig, n_streams: int, mode: int,
     has a leading (n_streams,), and stream s has the key
     ``prng.split(key_words, n_streams)[s]``, as ``jax.random.split``."""
     keys = prng.split(torch.as_tensor(key_words, dtype=torch.int64), n_streams)
+    return _carry_of_keys(config, mode, keys, device)
+
+
+def _carry_of_keys(config: StabilizerConfig, mode: int, keys: torch.Tensor,
+                   device) -> EngineCarry:
+    """A fresh carry on ``device`` of one stream per row of ``keys``."""
     one = init_carry(config, mode, keys[0], device)
-    carry = map_carry(lambda x: x[None].expand((n_streams,) + x.shape).clone(), one)
+    carry = map_carry(lambda x: x[None].expand((len(keys),) + x.shape).clone(), one)
     return dataclasses.replace(carry, key=keys.to(device))
 
 
@@ -117,8 +131,13 @@ def _indexed(device) -> torch.device:
 
 
 def make_stream_mesh(devices: Sequence | None = None) -> List[torch.device]:
-    """The devices the streams run on: the given ones ("cuda" is the
-    current card), or every CUDA card (raises without one)."""
+    """The mesh: the devices the streams run on, one slot per entry; the
+    given ones ("cuda" is the current card), or every CUDA card (raises
+    without one).  An entry may repeat: ``["cpu"] * 4`` or ``[cuda:0,
+    cuda:0]`` are several slots on one device, each with its own slice of
+    the streams.  They stand in for the JAX tests' virtual CPU devices, and
+    for a check of the sharded forms on one card; a slot per device is what
+    serves streams faster."""
     if devices is None:
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         if not devices:
@@ -127,34 +146,97 @@ def make_stream_mesh(devices: Sequence | None = None) -> List[torch.device]:
     return [_indexed(d) for d in devices]
 
 
-def _mesh_device(mesh: Sequence[torch.device]) -> torch.device:
-    if len(mesh) != 1:
-        raise NotImplementedError(f"{_MULTI_DEVICE}: got {len(mesh)} devices")
-    return mesh[0]
+def _per_slot(n_streams: int, mesh: Sequence[torch.device]) -> int:
+    if n_streams % len(mesh):
+        raise ValueError(f"{n_streams} streams do not split evenly over a mesh of "
+                         f"{len(mesh)} slots")
+    return n_streams // len(mesh)
 
 
-def shard_carry(carry: EngineCarry, mesh: Sequence[torch.device]) -> EngineCarry:
-    """Place a batched carry on the mesh: on its one device."""
-    dev = _mesh_device(mesh)
-    return map_carry(lambda x: x.to(dev), carry)
+def shard_carry(carry, mesh: Sequence[torch.device]):
+    """Place a batched carry of S streams on the mesh: on a one-slot mesh
+    the carry on its device; else a ``Sharded`` carry whose part d holds
+    streams ``d·S/D`` to ``(d+1)·S/D − 1``, copied to slot d's device.  S
+    must divide by D (``ValueError``)."""
+    mesh = make_stream_mesh(mesh)
+    if len(mesh) == 1:
+        return map_carry(lambda x: x.to(mesh[0]), carry)
+    per = _per_slot(carry.n.shape[0], mesh)
+    return Sharded(tuple(map_carry(lambda x: x[d * per:(d + 1) * per].to(dev, copy=True), carry)
+                         for d, dev in enumerate(mesh)))
 
 
-def _on_device(fn: Callable, dev: torch.device) -> Callable:
-    def run(carry: EngineCarry, frames: torch.Tensor):
-        if carry.frames.device != dev:
-            raise ValueError(f"carry on {carry.frames.device}, mesh on {dev}: shard_carry it")
-        return fn(carry, frames)
+def init_sharded_carry(config: StabilizerConfig, n_streams: int, mode: int,
+                       key_words: torch.Tensor, mesh: Sequence[torch.device]):
+    """``shard_carry(init_batched_carry(...), mesh)``, each slot's part made
+    on its own device: nothing is copied between devices."""
+    mesh = make_stream_mesh(mesh)
+    if len(mesh) == 1:
+        return init_batched_carry(config, n_streams, mode, key_words, mesh[0])
+    per = _per_slot(n_streams, mesh)
+    keys = prng.split(torch.as_tensor(key_words, dtype=torch.int64), n_streams)
+    return Sharded(tuple(_carry_of_keys(config, mode, keys[d * per:(d + 1) * per], dev)
+                         for d, dev in enumerate(mesh)))
+
+
+def _slots(carry, mesh: Sequence[torch.device]) -> tuple:
+    """The carry's parts, one per slot, each checked to lie on its slot's
+    device."""
+    parts = carry.parts if isinstance(carry, Sharded) else (carry,)
+    if len(parts) != len(mesh):
+        raise ValueError(f"a carry in {len(parts)} part(s) for a mesh of {len(mesh)} slots: "
+                         "shard_carry it")
+    for d, (part, dev) in enumerate(zip(parts, mesh)):
+        if part.frames.device != dev:
+            raise ValueError(f"slot {d}: carry on {part.frames.device}, mesh on {dev}: "
+                             "shard_carry it")
+    return parts
+
+
+def split_streams(frames, mesh: Sequence[torch.device]) -> list:
+    """Frames of all S streams (a tensor or an array with a leading stream
+    dimension) as the slots' parts of S/D streams, each moved to its slot's
+    device (no copy where it is there already); a ``Sharded`` value is taken
+    as already split by slot."""
+    if isinstance(frames, Sharded):
+        parts = frames.parts
+        if len(parts) != len(mesh):
+            raise ValueError(f"frames in {len(parts)} parts for a mesh of {len(mesh)} slots")
+    else:
+        parts = torch.as_tensor(frames).split(_per_slot(frames.shape[0], mesh))
+    return [p.to(dev, non_blocking=True) for p, dev in zip(parts, mesh)]
+
+
+def _over_mesh(fn: Callable, mesh: Sequence[torch.device]) -> Callable:
+    """``fn`` (a batched form: (carry, frames) -> (carry, (outputs, valid)))
+    run on each slot's part of the carry and of the frames.  Every slot is
+    enqueued before the next call reads anything back."""
+    mesh = tuple(make_stream_mesh(mesh))
+
+    def run(carry, frames):
+        slots = _slots(carry, mesh)
+        results = [fn(c, f) for c, f in zip(slots, split_streams(frames, mesh))]
+        if len(mesh) == 1:
+            return results[0]
+        carries, outs = zip(*results)
+        outputs, valid = zip(*outs)
+        return Sharded(carries), (Sharded(outputs), Sharded(valid))
+
     return run
 
 
 def make_sharded_step_fn(config: StabilizerConfig, mesh: Sequence[torch.device]) -> Callable:
-    """The batched step of a carry placed by :func:`shard_carry` on a
-    one-device mesh."""
-    return _on_device(make_batched_step_fn(config), _mesh_device(mesh))
+    """The batched step over the mesh: (carry placed by :func:`shard_carry`,
+    frames (S, Hf, Wf, C)) -> (carry, (outputs (S, Hf, Wf, C), valid (S,))),
+    each slot's streams through :func:`make_batched_step_fn` on its device;
+    ``Sharded`` carry and outputs on a mesh of several slots."""
+    return _over_mesh(make_batched_step_fn(config), mesh)
 
 
 def make_sharded_offline_fn(config: StabilizerConfig,
                             mesh: Sequence[torch.device]) -> Callable:
-    """The stream-batched offline chunk (``make_offline_batched_fn``) of a
-    carry placed by :func:`shard_carry` on a one-device mesh."""
-    return _on_device(make_offline_batched_fn(config), _mesh_device(mesh))
+    """The stream-batched offline chunk (``make_offline_batched_fn``) over
+    the mesh: (carry placed by :func:`shard_carry`, frames (S, K, Hf, Wf,
+    C)) -> (carry, (outputs (S, K, Hf, Wf, C), valid (S, K))), as
+    :func:`make_sharded_step_fn`."""
+    return _over_mesh(make_offline_batched_fn(config), mesh)

@@ -1,26 +1,31 @@
-"""Multi-stream serving harness: N video streams -> the stream-batched
-offline pipeline on one card -> per-stream stabilized outputs.
+"""Multi-stream serving harness: N video streams -> the stream-sharded
+offline pipeline over a mesh of cards -> per-stream stabilized outputs.
 
-Port of ``video_stabilization_tpu/serve.py``.  Data path per chunk of K
-frames of every stream:
+Port of ``video_stabilization_tpu/serve.py``.  The streams are split over
+the mesh's slots (``parallel/streams.py``; :func:`pick_serving_devices`
+takes the largest prefix of the cards that divides the stream count), S/D
+streams per slot.  Data path per chunk of K frames of every stream:
 
   native C++ Y4M block fread (``io/native.py``, one call per stream and
   chunk) straight into pinned host memory
-    -> one asynchronous H2D copy of the (S, K, bytes) planar YUV (1.5 B/px
-       for C420)
-    -> YUV -> BGR on the card (``ops/image.py::yuv_flat_to_bgr``)
-    -> the stream-batched offline chunk (``parallel/streams.py``, a
-       one-device mesh)
-    -> asynchronous D2H copies of the outputs into pinned host memory, then
-       an event
+    -> per slot, one asynchronous H2D copy of its streams' (S/D, K, bytes)
+       planar YUV (1.5 B/px for C420) to its card
+    -> YUV -> BGR on that card (``ops/image.py::yuv_flat_to_bgr``)
+    -> the stream-sharded offline chunk (``parallel/streams.py``): each
+       slot's streams through the stream-batched chunk on its card
+    -> per slot, asynchronous D2H copies of its outputs into pinned host
+       memory, then an event on its card's stream
     -> per-stream Y4M writers, one chunk behind.
 
-Two sets of pinned buffers alternate between chunks.  The host waits on a
-chunk's event only when it drains that chunk, after it has queued the next
-one, so the card computes chunk i while the host writes chunk i - 1: a
-``.cpu()`` on the one compute stream would wait for chunk i as well.
+Nothing is copied between cards.  Two sets of pinned buffers alternate
+between chunks; a slot's parts of them are slices of one pinned allocation
+(pinned memory serves every card of the process).  The host waits on a
+chunk's events, one per slot, only when it drains that chunk, after it has
+queued the next one, so the cards compute chunk i while the host writes
+chunk i - 1: a ``.cpu()`` on a compute stream would wait for chunk i as
+well.
 
-Run it (on the card; ``device="cpu"`` from Python for the CPU):
+Run it (on every card; ``device="cpu"`` from Python for the CPU):
 
   python -m video_stabilization_tpu_torch.serve --files a.y4m b.y4m \\
       --mode smoothing --output-dir out/
@@ -28,9 +33,8 @@ Run it (on the card; ``device="cpu"`` from Python for the CPU):
       --mode accumulated --output-dir out/
 
 The in-memory entry point :func:`stabilize_streams_sharded` runs the same
-pipeline on decoded footage; ``serve_files``' outputs equal it bit for bit
-(the writers only encode what came out).  A mesh of more than one device
-is not ported yet and raises (ROADMAP Queue 1 item 15).
+pipeline on decoded footage; ``serve_files``' outputs equal it on the same
+mesh bit for bit (the writers only encode what came out).
 """
 
 from __future__ import annotations
@@ -48,10 +52,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-# the last serve_files run's counts and its wall time split (seconds):
-# fread, queueing (H2D, decode, the chunk, the D2H copies), the drain's event
-# waits and its writes; device ms of the H2D copies, the decode and chunk,
-# and the D2H copies (CUDA events, on the card only)
+# the last serve_files run's counts, its mesh and its wall time split
+# (seconds): fread, queueing (H2D, decode, the chunk, the D2H copies), the
+# drain's event waits and its writes; per slot, device ms of its H2D copies,
+# its decode and chunk, and its D2H copies (CUDA events, on the card only;
+# slots that share a card share its stream, so their spans overlap)
 last_run: dict = {}
 # ``torch.cuda.set_sync_debug_mode`` of the chunk loop on the card (after
 # the set-up): "warn" lists every synchronizing call the loop makes; the
@@ -86,11 +91,13 @@ def _serve_config(h: int, w: int, working_height: int, past: int, future: int,
 def stabilize_streams_sharded(footage, config, mesh, chunk: int = 8, key=None):
     """In-memory serving path: footage (S, T, H, W, 3) u8 (a tensor or an
     array, on any device) -> stabilized (S, T, H, W, 3) u8, validity (S, T)
-    and the carry, on the mesh's device, through the stream-batched offline
-    chunk.  T must be a multiple of ``chunk``; ``key`` is the carry's key
-    words (default ``prng.key(0)``)."""
+    and the carry, through the stream-sharded offline chunk over ``mesh``.
+    Each slot's streams are moved to its device once, up front.  On a mesh
+    of several slots the three are ``Sharded`` (``parallel.unshard`` joins
+    them), else on the mesh's device.  T must be a multiple of ``chunk``;
+    ``key`` is the carry's key words (default ``prng.key(0)``)."""
     from video_stabilization_tpu_torch.parallel import (
-        init_batched_carry, make_sharded_offline_fn, make_stream_mesh, shard_carry)
+        Sharded, init_sharded_carry, make_sharded_offline_fn, make_stream_mesh, split_streams)
     from video_stabilization_tpu_torch.utils import prng
 
     if config.static_mode is None:
@@ -101,16 +108,22 @@ def stabilize_streams_sharded(footage, config, mesh, chunk: int = 8, key=None):
     if key is None:
         key = prng.key(0)
     mesh = make_stream_mesh(mesh)
-    dev = mesh[0]
-    carry = init_batched_carry(config, s, int(config.static_mode), key, dev)
-    carry = shard_carry(carry, mesh)
+    carry = init_sharded_carry(config, s, int(config.static_mode), key, mesh)
     fn = make_sharded_offline_fn(config, mesh)
+    parts = split_streams(footage, mesh)
     outs, valids = [], []
     for i in range(0, t, chunk):
-        carry, (out, valid) = fn(carry, torch.as_tensor(footage[:, i:i + chunk]).to(dev))
+        carry, (out, valid) = fn(carry, Sharded(tuple(p[:, i:i + chunk] for p in parts)))
         outs.append(out)
         valids.append(valid)
-    return torch.cat(outs, 1), torch.cat(valids, 1), carry
+    if len(mesh) == 1:
+        return torch.cat(outs, 1), torch.cat(valids, 1), carry
+
+    def join(chunks):               # per slot, its chunks along time
+        return Sharded(tuple(torch.cat([c.parts[d] for c in chunks], 1)
+                             for d in range(len(mesh))))
+
+    return join(outs), join(valids), carry
 
 
 @contextlib.contextmanager
@@ -126,10 +139,11 @@ def _loop_sync_debug(cuda: bool):
         torch.cuda.set_sync_debug_mode("default")
 
 
-class _Slot:
-    """One set of host buffers of a chunk: the planar YUV it reads into and
-    the outputs and validity it drains from (pinned on the card), and the
-    chunk's events."""
+class _Buffers:
+    """One set of host buffers of a chunk, for all S streams: the planar
+    YUV it reads into and the outputs and validity it drains from (pinned
+    on the card; slot d's part is the slice of its streams), and each
+    slot's events of the chunk."""
 
     def __init__(self, s: int, chunk: int, nbytes: int, h: int, w: int, cuda: bool):
         def host(shape, dtype):
@@ -139,30 +153,32 @@ class _Slot:
         self.yuv = host((s, chunk, nbytes), torch.uint8)
         self.out = host((s, chunk, h, w, 3), torch.uint8)
         self.valid = host((s, chunk), torch.bool)
-        self.events = None
+        self.events = None          # per slot: {name: event on its card's stream}
 
-    def record(self, name: str, cuda: bool) -> None:
-        if cuda:
-            self.events[name] = torch.cuda.Event(enable_timing=True)
-            self.events[name].record()
+    def record(self, d: int, name: str, dev: torch.device) -> None:
+        if dev.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(dev))
+            self.events[d][name] = ev
 
 
 def serve_files(paths: Sequence[str], output_dir: Optional[str], mode,
                 working_height: int = 360, past: int = 60, future: int = 45,
                 chunk: int = 8, max_frames: Optional[int] = None,
                 devices: Optional[Sequence] = None, config=None, log=print):
-    """Stream N Y4M files through the stream-batched pipeline; write
+    """Stream N Y4M files through the stream-sharded pipeline; write
     per-stream stabilized Y4M files ``stabilized_<name>`` to ``output_dir``
-    (skipped when None).  ``devices`` defaults to every CUDA card (one is
-    ported: more raise, ROADMAP Queue 1 item 15); ``["cpu"]`` runs on the
-    CPU.  Returns (frames_done_per_stream, wall_seconds); :data:`last_run`
-    holds the run's split."""
+    (skipped when None).  ``devices`` (default every CUDA card; ``["cpu"]``
+    runs on the CPU) gives the mesh, of which :func:`pick_serving_devices`
+    takes the slots the stream count divides over.  Returns
+    (frames_done_per_stream, wall_seconds); :data:`last_run` holds the
+    run's split."""
     from video_stabilization_tpu_torch.config import StabilizationMode
     from video_stabilization_tpu_torch.io.native import NativeY4MReader
     from video_stabilization_tpu_torch.io.video import VideoWriter
     from video_stabilization_tpu_torch.ops.image import yuv_flat_to_bgr
     from video_stabilization_tpu_torch.parallel import (
-        init_batched_carry, make_sharded_offline_fn, make_stream_mesh, shard_carry)
+        Sharded, init_sharded_carry, make_sharded_offline_fn, make_stream_mesh)
     from video_stabilization_tpu_torch.utils import prng
 
     readers = [NativeY4MReader(p) for p in paths]
@@ -175,9 +191,10 @@ def serve_files(paths: Sequence[str], output_dir: Optional[str], mode,
     s = len(readers)
 
     mesh = make_stream_mesh(pick_serving_devices(make_stream_mesh(devices), s))
-    dev = mesh[0]
-    cuda = dev.type == "cuda"
-    log(f"serving {s} stream(s) of {w}x{h} over {len(mesh)} device(s) ({dev}), chunk {chunk}")
+    n_slots, per = len(mesh), s // len(mesh)
+    cuda = mesh[0].type == "cuda"
+    log(f"serving {s} stream(s) of {w}x{h} over {n_slots} device(s) "
+        f"[{', '.join(map(str, mesh))}], chunk {chunk}")
 
     if isinstance(mode, str):
         # both the CLI spellings ("smoothing", "orb-lock", ...) and the enum
@@ -194,7 +211,7 @@ def serve_files(paths: Sequence[str], output_dir: Optional[str], mode,
                             ecc=(mode == StabilizationMode.SIFT_FULL_LOCK))
 
     offline = make_sharded_offline_fn(cfg, mesh)
-    carry = shard_carry(init_batched_carry(cfg, s, int(mode), prng.key(0), dev), mesh)
+    carry = init_sharded_carry(cfg, s, int(mode), prng.key(0), mesh)
 
     writers = None
     if output_dir is not None:
@@ -203,55 +220,64 @@ def serve_files(paths: Sequence[str], output_dir: Optional[str], mode,
                                r.fps, (h, w), subsampling="420" if c420 else "444")
                    for p, r in zip(paths, readers)]
 
-    slots = [_Slot(s, chunk, readers[0].yuv_bytes, h, w, cuda) for _ in range(2)]
+    buffers = [_Buffers(s, chunk, readers[0].yuv_bytes, h, w, cuda) for _ in range(2)]
     split = dict(read_s=0.0, queue_s=0.0, wait_s=0.0, write_s=0.0,
-                 h2d_ms=0.0, compute_ms=0.0, d2h_ms=0.0)
+                 h2d_ms=[0.0] * n_slots, compute_ms=[0.0] * n_slots, d2h_ms=[0.0] * n_slots)
     waits = 0
 
-    def drain(slot: _Slot) -> None:
+    def streams_of(d: int) -> slice:
+        return slice(d * per, (d + 1) * per)
+
+    def drain(buf: _Buffers) -> None:
         nonlocal waits
         t0 = time.perf_counter()
         if cuda:
-            slot.events["copied"].synchronize()       # this chunk only
-            waits += 1
-            ev = slot.events
-            split["h2d_ms"] += ev["start"].elapsed_time(ev["uploaded"])
-            split["compute_ms"] += ev["uploaded"].elapsed_time(ev["computed"])
-            split["d2h_ms"] += ev["computed"].elapsed_time(ev["copied"])
+            for d, ev in enumerate(buf.events):
+                ev["copied"].synchronize()         # this chunk's slot d only
+                waits += 1
+                split["h2d_ms"][d] += ev["start"].elapsed_time(ev["uploaded"])
+                split["compute_ms"][d] += ev["uploaded"].elapsed_time(ev["computed"])
+                split["d2h_ms"][d] += ev["computed"].elapsed_time(ev["copied"])
         t1 = time.perf_counter()
         if writers is not None:
-            _drain(writers, slot.out.numpy(), slot.valid.numpy())
+            _drain(writers, buf.out.numpy(), buf.valid.numpy())
         split["wait_s"] += t1 - t0
         split["write_s"] += time.perf_counter() - t1
 
     done = 0
     t_start = time.perf_counter()
-    pending = None                  # the slot of the chunk still in flight
+    pending = None                  # the buffers of the chunk still in flight
     i = 0
     with _loop_sync_debug(cuda):
         while max_frames is None or done < max_frames:
-            slot = slots[i % 2]
+            buf = buffers[i % 2]
             t0 = time.perf_counter()
-            blocks = [r.read_yuv_block(chunk, out=slot.yuv[si].numpy())
+            blocks = [r.read_yuv_block(chunk, out=buf.yuv[si].numpy())
                       for si, r in enumerate(readers)]
             split["read_s"] += time.perf_counter() - t0
             if any(b is None or len(b) < chunk for b in blocks):
                 break                   # the shortest stream sets the length
             t0 = time.perf_counter()
-            slot.events = {}
-            slot.record("start", cuda)
-            yuv = slot.yuv.to(dev, non_blocking=True)
-            slot.record("uploaded", cuda)
-            carry, (out, valid) = offline(carry, yuv_flat_to_bgr(yuv, h, w, c420))
-            slot.record("computed", cuda)
-            slot.out.copy_(out, non_blocking=True)
-            slot.valid.copy_(valid, non_blocking=True)
-            slot.record("copied", cuda)
+            buf.events = [{} for _ in mesh]
+            frames = []
+            for d, dev in enumerate(mesh):      # each slot's streams on its card
+                buf.record(d, "start", dev)
+                yuv = buf.yuv[streams_of(d)].to(dev, non_blocking=True)
+                buf.record(d, "uploaded", dev)
+                frames.append(yuv_flat_to_bgr(yuv, h, w, c420))
+            carry, (out, valid) = offline(carry, Sharded(tuple(frames)))
+            outs = out.parts if n_slots > 1 else (out,)
+            valids = valid.parts if n_slots > 1 else (valid,)
+            for d, dev in enumerate(mesh):
+                buf.record(d, "computed", dev)
+                buf.out[streams_of(d)].copy_(outs[d], non_blocking=True)
+                buf.valid[streams_of(d)].copy_(valids[d], non_blocking=True)
+                buf.record(d, "copied", dev)
             split["queue_s"] += time.perf_counter() - t0
-            # drain the PREVIOUS chunk while the card computes this one
+            # drain the PREVIOUS chunk while the cards compute this one
             if pending is not None:
                 drain(pending)
-            pending = slot
+            pending = buf
             done += chunk
             i += 1
         if pending is not None:
@@ -265,7 +291,7 @@ def serve_files(paths: Sequence[str], output_dir: Optional[str], mode,
             wr.close()
     last_run.clear()
     last_run.update(streams=s, frames=done, chunks=i, chunk=chunk, wall_s=dt,
-                    event_waits=waits, **split)
+                    devices=[str(d) for d in mesh], event_waits=waits, **split)
     log(f"served {done} frames x {s} streams in {dt:.2f}s "
         f"({done * s / dt:.1f} aggregate fps)" if done else "no full chunks")
     return done, dt
@@ -306,14 +332,16 @@ def _render_sim_streams(n_streams, n_frames, h, w, out_dir, device="cuda", log=p
     return paths
 
 
-def main(argv=None, device="cuda", keep_inputs: bool = False):
-    """The command line.  Runs on ``device`` (the card unless the caller
-    names the CPU).  ``--simulator`` streams are rendered into a temporary
-    directory, removed at the end unless ``keep_inputs`` (its paths are then
-    in ``last_run["inputs"]``)."""
+def main(argv=None, device=None, keep_inputs: bool = False):
+    """The command line.  Serves over ``device``: every CUDA card by default
+    (``parallel.make_stream_mesh()``), else the one device named (``"cpu"``
+    for the CPU) or a list of them, the mesh.  ``--simulator`` streams are
+    rendered on the mesh's first device into a temporary directory, removed
+    at the end unless ``keep_inputs`` (its paths are then in
+    ``last_run["inputs"]``)."""
     ap = argparse.ArgumentParser(
         prog="python -m video_stabilization_tpu_torch.serve",
-        description="Multi-stream stabilization serving on a CUDA card.")
+        description="Multi-stream stabilization serving over the CUDA cards.")
     src = ap.add_mutually_exclusive_group(required=True)
     src.add_argument("--files", nargs="+", help="input Y4M files, one per stream")
     src.add_argument("--simulator", type=int, metavar="N",
@@ -342,22 +370,27 @@ def main(argv=None, device="cuda", keep_inputs: bool = False):
                 "translation": "TRANSLATION_LOCK",
                 "rotation": "ROTATION_LOCK"}
 
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"serve: device {str(device)!r} requested but CUDA is not available")
+    from video_stabilization_tpu_torch.parallel import make_stream_mesh
+
+    if isinstance(device, (str, torch.device)):
+        device = [device]
+    if any(torch.device(d).type == "cuda" for d in device or ()) and \
+            not torch.cuda.is_available():
+        raise RuntimeError(f"serve: devices {device} requested but CUDA is not available")
+    mesh = make_stream_mesh(device)
     paths = args.files
     sim_dir = None
     if paths is None:
         w, h = (int(x) for x in args.sim_size.split("x"))
         sim_dir = tempfile.mkdtemp(prefix="vstab_serve_")
-        paths = _render_sim_streams(args.simulator, args.frames or 64, h, w, sim_dir, device)
+        paths = _render_sim_streams(args.simulator, args.frames or 64, h, w, sim_dir, mesh[0])
 
     past = max(1, int(round(args.past_window * args.fps)))
     future = max(0, int(round(args.future_window * args.fps)))
     try:
         serve_files(paths, args.output_dir, mode_map[args.mode],
                     working_height=args.working_height, past=past, future=future,
-                    chunk=args.chunk, max_frames=args.frames, devices=[device])
+                    chunk=args.chunk, max_frames=args.frames, devices=mesh)
     finally:
         if sim_dir is not None and not keep_inputs:
             shutil.rmtree(sim_dir, ignore_errors=True)

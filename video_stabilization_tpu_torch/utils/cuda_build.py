@@ -4,7 +4,14 @@ The kernels have a plain C interface: ``nvcc`` compiles each ``.cu`` file on
 its own (seconds, no PyTorch headers) into ``build/kernels/`` at the root of
 the checkout, and ``ctypes`` loads it.  :func:`build_kernels` starts one
 ``nvcc`` per source, all at once.  The library's name carries a hash of
-its source, so an edited kernel is rebuilt and an unchanged one is reused.
+its source, of the ``csrc/*.cuh`` headers and of the flags, so an edited
+kernel is rebuilt and an unchanged one is reused.
+
+Each library links nvcc's default static CUDA runtime: its own copy, beside
+the one PyTorch loaded.  So every entry point takes the device index of its
+tensors and makes that device current for its launch
+(``csrc/launch_device.cuh``) rather than rely on the runtime state PyTorch
+leaves on the thread.
 
 Nothing here runs at import time: a kernel module calls :func:`load_kernel`
 on its first CUDA launch, so a machine without ``nvcc`` or a GPU can import
@@ -43,8 +50,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    parts = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]      # the headers it may include
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in parts)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
