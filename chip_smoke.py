@@ -2,7 +2,7 @@
 card is enough; phase 13 takes every card there is).
 
     python3 chip_smoke.py [--seed N] [--frames N] [--lock-frames N] [--orb-frames N]
-    python3 chip_smoke.py --mesh-only    # phases 1, 2 and 13 alone: the multi-card check
+    python3 chip_smoke.py --mesh-only    # phases 1, 2, 13 and 14's mesh part: the multi-card check
 
 Phases (each prints its lines; any failure raises and the exit code is not 0):
 
@@ -116,7 +116,21 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    its files against the in-memory ``stabilize_streams_sharded`` on the
    same mesh byte for byte, 5 warp launches per slot and chunk, one event
    wait per slot and chunk, no host sync in the loop; and ``--mode orb``
-   over the mesh.
+   over the mesh;
+14. mixed modes (run after phase 13): config 5 (phase 9's sizes and seeds, 16
+   frames) with no static mode through ``parallel.make_batched_step_fn``, the
+   streams' modes interleaved GLOBAL_SMOOTHING, TRANSLATION_LOCK,
+   ACCUMULATED_FULL_LOCK, ORB_FULL_LOCK, twice: exactly one host sync per
+   call, at the mode read (by source line), in a warm-up call; 5 warp and 2
+   FAST launches per call; each stream bit for bit against stream s of the
+   body on the whole batch in its own mode, with the same warp arguments,
+   from a clone of the carry before each call (four runs per call); ms per
+   batched frame beside phase 9's one-mode batched step, peak device
+   memory.  Then the same modes over phase 13's mesh through
+   ``make_sharded_step_fn`` for 8 frames: each slot bit for bit against its
+   sub-batch through the one-device mixed form, one mode read per slot per
+   call, no peer-to-peer copy, the carry on its slots (``--mesh-only`` runs
+   this part too).
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1584,6 +1598,246 @@ def serve_mesh_only(mesh: list, card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase 14: config 5 in mixed modes, interleaved over the streams (SIFT stays
+# in the CPU tests: ~215 ms per frame at config 4, too long for the smoke)
+MIXED_MODES = (0, 4, 1, 2, 0, 4, 1, 2)   # GLOBAL_SMOOTHING, TRANSLATION, ACCUMULATED, ORB
+MIXED_FRAMES = 16        # a depth cut from phase 9's 24, as phase 13's
+MIXED_MESH_FRAMES = 8
+MIXED_WARM = 4           # calls before the timed ones; the last under the sync check
+MIXED_FAST_PER_CALL = 2  # one FAST launch per ORB stream and frame
+
+
+def source_line(fn, text: str) -> str:
+    """``file:line`` of the first line of ``fn``'s source holding ``text``
+    (where a sync warning names its caller)."""
+    import inspect
+
+    fn = inspect.unwrap(fn)
+    lines, start = inspect.getsourcelines(fn)
+    at = next(i for i, ln in enumerate(lines) if text in ln)
+    return f"{inspect.getsourcefile(fn)}:{start + at}"
+
+
+def mixed_carry(cfg, n_streams: int, seed: int, dev, modes=MIXED_MODES):
+    """A fresh carry of ``n_streams`` streams from the seed's stream keys,
+    stream s in mode ``modes[s % len(modes)]``."""
+    import dataclasses
+
+    from video_stabilization_tpu_torch.parallel import init_batched_carry
+    from video_stabilization_tpu_torch.utils import prng
+
+    carry = init_batched_carry(cfg, n_streams, 0, prng.key(seed), dev)
+    mode = torch.tensor([modes[s % len(modes)] for s in range(n_streams)], dtype=torch.int32)
+    return dataclasses.replace(carry, mode=mode.to(dev))
+
+
+def own_mode_differs(before, frames, cfg, stream_modes, carry, out) -> list:
+    """The streams of a mixed call (``before`` -> ``carry``, ``out``) that
+    differ from stream s of the body on the whole batch in stream s's own
+    mode (K = 1, the mixed call's warp arguments), each mode's run from a
+    clone of ``before``: outputs and lock state, bit for bit."""
+    from video_stabilization_tpu_torch.engine import map_carry, offline_batched_chunk_step
+    from video_stabilization_tpu_torch.parallel.streams import _batched_config
+
+    bcfg = _batched_config(cfg)
+    bad = []
+    for m in sorted(set(stream_modes)):
+        ref, (ref_out, _) = offline_batched_chunk_step(
+            map_carry(torch.clone, before), frames[:, None], bcfg, streaming=True,
+            modes=[m] * len(stream_modes))
+        for s in (s for s, ms in enumerate(stream_modes) if ms == m):
+            same = torch.equal(ref_out[s, 0], out[s]) and all(
+                torch.equal(getattr(ref, f)[s], getattr(carry, f)[s])
+                for f in ("last_h", "accum_h", "accum_active", "lock_prev_h",
+                          "last_lock_matches"))
+            if not same:
+                bad.append(s)
+        del ref, ref_out
+    return sorted(bad)
+
+
+def phase_mixed(cfg, seed: int, dev, card: str, one_mode: dict) -> dict:
+    """Phase 14, on one card: bench config 5 (N_STREAMS streams of
+    1080x1920, phase 9's seeds, MIXED_FRAMES frames) in the interleaved
+    modes MIXED_MODES through ``make_batched_step_fn`` with no static mode.
+    Checks exactly one host sync per call, at the mode read (named by its
+    source line), in an untimed warm-up call; BATCHED_LAUNCHES warp and
+    MIXED_FAST_PER_CALL FAST launches per call; and on a second pass each
+    stream bit for bit against stream s of the body on the whole batch in
+    its own mode, with the same warp arguments, from a clone of the carry
+    before each call.  Prints ms per batched frame beside phase 9's
+    one-mode batched step (``one_mode``) and peak device memory."""
+    from video_stabilization_tpu_torch.config import StabilizationMode
+    from video_stabilization_tpu_torch.engine import map_carry
+    from video_stabilization_tpu_torch.engine.stabilizer import accumulating_modes
+    from video_stabilization_tpu_torch.ops import affine_warp as aw
+    from video_stabilization_tpu_torch.ops import fast
+    from video_stabilization_tpu_torch.parallel import make_batched_step_fn, streams
+    from video_stabilization_tpu_torch.utils import stage_profile
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    n_frames = MIXED_FRAMES
+    frames = stage_profile.footage(cfg, n_frames, seed, dev, streams=N_STREAMS)
+    stream_modes = [MIXED_MODES[s % len(MIXED_MODES)] for s in range(N_STREAMS)]
+    names = "/".join(StabilizationMode(m).name for m in MIXED_MODES[:4])
+    step = make_batched_step_fn(cfg)
+    tag = "mixed config5"
+
+    # the timed run: launches counted from 0 just before it
+    carry = mixed_carry(cfg, N_STREAMS, seed, dev)
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    per_call, fast_per_call = [], []
+    aw.launches = fast.launches = 0
+    for t in range(n_frames):
+        before, fast_before = aw.launches, fast.launches
+        if t == MIXED_WARM - 1:
+            (carry, _), syncs = count_syncs(lambda: step(carry, frames[:, t]))
+            torch.cuda.synchronize()
+            ev0.record()
+        else:
+            carry, _ = step(carry, frames[:, t])
+        per_call.append(aw.launches - before)
+        fast_per_call.append(fast.launches - fast_before)
+    ev1.record()
+    torch.cuda.synchronize()
+    launches, fast_launches = aw.launches, fast.launches
+    ms_step = ev0.elapsed_time(ev1) / (n_frames - MIXED_WARM)
+    matches = carry.last_lock_matches.tolist()
+    active = carry.accum_active.tolist()
+    captured = carry.orb_ref.is_set.tolist()
+    del carry
+
+    # the equality pass: each call against its own modes' runs
+    carry = mixed_carry(cfg, N_STREAMS, seed, dev)
+    bad = {}
+    for t in range(n_frames):
+        before = map_carry(torch.clone, carry)
+        carry, (out, _) = step(carry, frames[:, t])
+        wrong = own_mode_differs(before, frames[:, t], cfg, stream_modes, carry, out)
+        if wrong:
+            bad[t] = wrong
+        del before
+    finite = bool(torch.isfinite(carry.last_h).all())
+    del carry, frames
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = source_line(streams.make_batched_step_fn, "carry.mode.tolist()")
+
+    print(f"{tag}: {N_STREAMS} streams x {n_frames} frames {cfg.frame_height}x"
+          f"{cfg.frame_width} in modes {names} (stream s in mode s % 4) through the batched "
+          f"step with no static mode; warp launches {launches} (per call "
+          f"{sorted(set(per_call))}), FAST launches {fast_launches} (per call "
+          f"{sorted(set(fast_per_call))}); lock matches {matches}, ORB reference captured "
+          f"{captured}, accumulated lock active {active}", flush=True)
+    print(f"{tag}: {len(syncs)} synchronizing calls in one call (an untimed warm-up one) "
+          f"under set_sync_debug_mode('warn'): {sorted(set(syncs))}; the mode read is "
+          f"{want}", flush=True)
+    print(f"{tag}: each stream bit for bit equal to stream s of its own mode's run on the "
+          f"whole batch (4 runs per call, each from a clone of the carry) in "
+          f"{n_frames - len(bad)} of {n_frames} calls" + (f"; differing {bad}" if bad else ""),
+          flush=True)
+    print(f"{tag}: {ms_step:.3f} ms per batched frame ({n_frames - MIXED_WARM} steady "
+          f"calls, CUDA events), {N_STREAMS * 1e3 / ms_step:.1f} frames/s in all; phase 9's "
+          f"one-mode batched step in this run: TRANSLATION_LOCK "
+          f"{one_mode['TRANSLATION_LOCK']['ms_step']:.3f} ms, GLOBAL_SMOOTHING "
+          f"{one_mode['GLOBAL_SMOOTHING']['ms_step']:.3f} ms; peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB ({mem0 / 2 ** 30:.2f} GiB allocated before the phase); "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    if syncs != [want]:
+        raise AssertionError(f"{tag}: host syncs {syncs}, not the one mode read at {want}")
+    if set(per_call) != {BATCHED_LAUNCHES} or set(fast_per_call) != {MIXED_FAST_PER_CALL}:
+        raise AssertionError(f"{tag}: warp launches per call {per_call}, FAST {fast_per_call}")
+    if bad or not finite:
+        raise AssertionError(f"{tag}: streams differ from their own modes' runs: {bad}; "
+                             f"finite last_h {finite}")
+    want_captured = [m == StabilizationMode.ORB_FULL_LOCK for m in stream_modes]
+    want_active = [m in accumulating_modes(cfg) for m in stream_modes]
+    if captured != want_captured or active != want_active:
+        raise AssertionError(f"{tag}: ORB reference captured {captured}, accumulated lock "
+                             f"active {active}; want {want_captured}, {want_active}")
+    return {"launches": launches, "fast_launches": fast_launches, "frames": n_frames,
+            "ms_step": ms_step, "syncs": len(syncs)}
+
+
+def phase_mixed_mesh(cfg, seed: int, mesh: list, card: str) -> dict:
+    """Phase 14 over phase 13's mesh: the same modes through
+    ``make_sharded_step_fn`` with no static mode, MIXED_MESH_FRAMES frames,
+    each slot's streams rendered once onto its card.  Checks each slot bit
+    for bit against its own sub-batch through the one-device mixed form on
+    its card, one mode read per slot in a warm-up call (and no other sync),
+    every carry tensor on its slot's device after every call,
+    BATCHED_LAUNCHES warp launches per slot per call, MIXED_FAST_PER_CALL
+    FAST launches per call, and no peer-to-peer copy in a profiled call."""
+    from video_stabilization_tpu_torch.engine import map_carry
+    from video_stabilization_tpu_torch.ops import affine_warp as aw
+    from video_stabilization_tpu_torch.ops import fast
+    from video_stabilization_tpu_torch.parallel import (
+        Sharded, make_batched_step_fn, make_sharded_step_fn, shard_carry, streams)
+    from video_stabilization_tpu_torch.utils import stage_profile
+
+    t_phase = time.perf_counter()
+    n_slots, per = len(mesh), N_STREAMS // len(mesh)
+    dev0, n_frames = mesh[0], MIXED_MESH_FRAMES
+    frames = stage_profile.footage(cfg, n_frames, seed, dev0, streams=N_STREAMS)
+    parts = [frames[d * per:(d + 1) * per].to(dv) for d, dv in enumerate(mesh)]
+    del frames
+    tag = "mixed sharded config5"
+    sharded = make_sharded_step_fn(cfg, mesh)
+    start = mixed_carry(cfg, N_STREAMS, seed, dev0)
+    carry = shard_carry(start, mesh)
+    outs, per_call, fast_per_call, misplaced_n, syncs = [], [], [], 0, []
+    aw.launches = fast.launches = 0
+    for t in range(n_frames):
+        before, fast_before = aw.launches, fast.launches
+        frames_t = Sharded(tuple(p[:, t] for p in parts)) if n_slots > 1 else parts[0][:, t]
+        if t == 1:
+            (carry, (out, _)), syncs = count_syncs(lambda: sharded(carry, frames_t))
+        else:
+            carry, (out, _) = sharded(carry, frames_t)
+        per_call.append(aw.launches - before)
+        fast_per_call.append(fast.launches - fast_before)
+        misplaced_n += misplaced(carry, mesh)
+        outs.append(out.parts if n_slots > 1 else (out,))
+    launches, fast_launches = aw.launches, fast.launches
+    last = Sharded(tuple(p[:, -1] for p in parts)) if n_slots > 1 else parts[0][:, -1]
+    _, split, _ = profiled(lambda: sharded(map_carry(torch.clone, carry), last), mesh)
+    ppp = copies_of(split, "PtoP")
+    del carry
+
+    # each slot's sub-batch through the one-device mixed form on its card
+    one = make_batched_step_fn(cfg)
+    slot_equal = 0
+    for d, dv in enumerate(mesh):
+        c_d = map_carry(lambda x: x[d * per:(d + 1) * per].to(dv, copy=True), start)
+        for t in range(n_frames):
+            c_d, (o, _) = one(c_d, parts[d][:, t])
+            slot_equal += bool(torch.equal(o, outs[t][d]))
+    del start, outs, parts
+    want = source_line(streams._over_mesh, "c.mode.tolist()")
+    print(f"{tag}: mesh [{', '.join(map(str, mesh))}], {N_STREAMS} streams x {n_frames} "
+          f"frames, {per} per slot, modes {MIXED_MODES}; warp launches {launches} (per call "
+          f"{sorted(set(per_call))}, {BATCHED_LAUNCHES} per slot expected), FAST "
+          f"{fast_launches} (per call {sorted(set(fast_per_call))}); carry tensors off their "
+          f"slot's device after a call: {misplaced_n}; peer-to-peer copies in a profiled "
+          f"call {ppp}", flush=True)
+    print(f"{tag}: {len(syncs)} synchronizing calls in one call (a warm-up one): "
+          f"{sorted(set(syncs))}; {n_slots} mode reads expected at {want}", flush=True)
+    print(f"{tag}: each slot equal to its own sub-batch through the one-device mixed form, "
+          f"bit for bit, in {slot_equal} of {n_slots * n_frames} slot calls; "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    if syncs != [want] * n_slots:
+        raise AssertionError(f"{tag}: host syncs {syncs}, not one mode read per slot")
+    if set(per_call) != {BATCHED_LAUNCHES * n_slots} or \
+            set(fast_per_call) != {MIXED_FAST_PER_CALL}:
+        raise AssertionError(f"{tag}: warp launches per call {per_call}, FAST {fast_per_call}")
+    if misplaced_n or ppp or slot_equal != n_slots * n_frames:
+        raise AssertionError(f"{tag}: {misplaced_n} misplaced carry tensors, {ppp} "
+                             f"peer-to-peer copies, {slot_equal} of {n_slots * n_frames} "
+                             "slot calls equal")
+    return {"launches": launches, "fast_launches": fast_launches, "frames": n_frames}
+
+
 def phase_last_card(dev, rng) -> float:
     """With two or more cards: the warp (one image, and a batch of config
     5's shape that mixes items inside and outside the envelope) and FAST's
@@ -2475,7 +2729,8 @@ def main() -> int:
     ap.add_argument("--lock-frames", type=int, default=16)
     ap.add_argument("--orb-frames", type=int, default=64)
     ap.add_argument("--mesh-only", action="store_true",
-                    help="phases 1, 2 and 13 alone (its serving part on fresh inputs of "
+                    help="phases 1, 2, 13 and 14's mesh part alone (13's serving part on "
+                         "fresh inputs of "
                          f"{MESH_ONLY_SERVE_FRAMES} frames): the check of a host with "
                          "several cards")
     args = ap.parse_args()
@@ -2521,6 +2776,7 @@ def main() -> int:
         if n_cards >= 2:
             phase_last_card(mesh[-1], rng)
         phase_sharded(cfg5, args.seed, mesh, cards)
+        phase_mixed_mesh(cfg5, args.seed, mesh, cards)
         serve_mesh_only(mesh, cards)
         print(nvidia_smi_line(), flush=True)
         print(json.dumps({"ok": True, "device": {
@@ -2563,6 +2819,8 @@ def main() -> int:
         run.pop("outs")
     streams = phase_streams(cfg5, args.seed, dev, card)
     sharded = phase_sharded(cfg5, args.seed, mesh, cards)
+    mixed = phase_mixed(cfg5, args.seed, dev, card, streams)
+    mixed_mesh = phase_mixed_mesh(cfg5, args.seed, mesh, cards)
     served = phase_serve(args.seed, dev, card, mesh, cards)
     apps = phase_app(args.seed, dev, card)
     app_flags = phase_app_flags(args.seed, dev, card)
@@ -2575,7 +2833,8 @@ def main() -> int:
           f"{off3['syncs']}, {off4['syncs']}; config 5, batched step and chunk: "
           f"{streams['TRANSLATION_LOCK']['syncs']} (TRANSLATION_LOCK), "
           f"{streams['GLOBAL_SMOOTHING']['syncs']} (GLOBAL_SMOOTHING), over the mesh 0 "
-          f"(phase 13 raises otherwise); serving loop "
+          f"(phase 13 raises otherwise); in mixed modes per call {mixed['syncs']} (the mode "
+          f"read), over the mesh one per slot (phase 14 raises otherwise); serving loop "
           f"{served['syncs']} (and one event wait per chunk, the drain's); app loop per frame "
           + ", ".join(f"{k} {len(r['syncs']) / r['frames']:.2f}" for k, r in apps.items()),
           flush=True)
@@ -2616,6 +2875,11 @@ def main() -> int:
                                     **kern["offline_sharded_config5"]},
         "serve_sharded": {**counted(served["sharded"]["launches"], served["sharded"]),
                           **kern["offline_sharded_config5"]},
+        # phase 14: per batched frame of the 8 streams in mixed modes, on one
+        # card and over the mesh
+        "mixed_config5": {**counted(mixed["launches"], mixed), **kern["config5"]},
+        "mixed_sharded_config5": {**counted(mixed_mesh["launches"], mixed_mesh),
+                                  **kern["sharded_config5"]},
         # the app's frames are config 3's size (720x1280, working height 360)
         "cli": {**counted(apps["resumed"]["warp"], apps["resumed"]), **kern["config3"]},
         "cli_orb": {**counted(apps["orb-lock"]["warp"], apps["orb-lock"]), **kern["config3"]},
@@ -2644,7 +2908,10 @@ def main() -> int:
                                                   {"frames": served["sharded"]["fast_frames"]}),
                                         **fast_times},
                   "cli_orb": {**counted(apps["orb-lock"]["fast"], apps["orb-lock"]),
-                              **fast_times}}
+                              **fast_times},
+                  "mixed_config5": {**counted(mixed["fast_launches"], mixed), **fast_times},
+                  "mixed_sharded_config5": {**counted(mixed_mesh["fast_launches"], mixed_mesh),
+                                            **fast_times}}
     record = {"kernels": [{
         "name": "affine_warp",
         "route": "cuda",

@@ -33,6 +33,23 @@ def test_modes_match_jax():
             == {m.name: m.value for m in jcfg.StabilizationMode})
 
 
+def test_input_modes_match_jax():
+    assert ({m.name: m.value for m in tcfg.InputMode}
+            == {m.name: m.value for m in jcfg.InputMode})
+
+
+def test_default_config_matches_jax():
+    assert tcfg.DEFAULT_CONFIG == tcfg.StabilizerConfig()
+    assert dataclasses.asdict(tcfg.DEFAULT_CONFIG) == dataclasses.asdict(jcfg.DEFAULT_CONFIG)
+
+
+def test_arc_len_matches_jax():
+    from video_stabilization_tpu.ops.fast import ARC_LEN as J_ARC_LEN
+    from video_stabilization_tpu_torch.ops.fast import ARC_LEN
+
+    assert ARC_LEN == J_ARC_LEN == 9
+
+
 @pytest.mark.parametrize("make", [
     small_config,
     lambda: jcfg.StabilizerConfig(),

@@ -397,17 +397,47 @@ def test_sharding_refuses_uneven_streams_and_wrong_placement():
 
 
 @pytest.mark.parametrize("make", [make_batched_step_fn, make_batched_scan_fn,
-                                  make_offline_batched_fn, "sharded_step", "sharded_offline"])
-def test_batched_forms_require_static_mode(make):
-    """The port branches on a host mode: a batch without a pinned mode is
-    refused (the JAX package warns and runs every branch per stream)."""
+                                  make_offline_batched_fn, "sharded_step", "sharded_offline",
+                                  "offline_chunk_step", "stabilize_clip_offline",
+                                  "stabilize_streams_sharded"])
+def test_batched_forms_require_static_mode(make, stream_frames):
+    """Without a pinned mode the offline chunk forms and serving are
+    refused, as the JAX package refuses them; the batched step, its scan and
+    the sharded step run each stream in its own ``carry.mode``
+    (tests/test_torch_mixed_modes.py holds them to JAX): here two streams in
+    GLOBAL_SMOOTHING and ACCUMULATED_FULL_LOCK, two frames."""
+    from video_stabilization_tpu_torch.engine import stabilize_clip_offline
+    from video_stabilization_tpu_torch.serve import stabilize_streams_sharded
+
     cfg = config_from_fields(dataclasses.replace(tiny_config(), static_mode=None))
     mesh = make_stream_mesh(["cpu"])
+    runs = {make_batched_step_fn: lambda: make_batched_step_fn(cfg),
+            "sharded_step": lambda: make_sharded_step_fn(cfg, mesh)}
+    if make in runs or make == make_batched_scan_fn:
+        carry = port_carry(tiny_config(), 2, M.GLOBAL_SMOOTHING, 1)
+        carry.mode[1] = int(M.ACCUMULATED_FULL_LOCK)
+        frames = torch.from_numpy(stream_frames[:2, :2])
+        if make in runs:
+            step = runs[make]()
+            for f in frames:
+                carry, (out, valid) = step(carry, f)
+        else:
+            carry, (out, valid) = make_batched_scan_fn(cfg)(carry, frames)
+        assert out.shape[-4:] == (2, FH, FW, 3) and bool(valid.all())
+        assert carry.accum_active.tolist() == [False, True]
+        assert carry.mode.tolist() == [int(M.GLOBAL_SMOOTHING), int(M.ACCUMULATED_FULL_LOCK)]
+        return
+    one = port_carry(tiny_config(), 1, M.GLOBAL_SMOOTHING, 0)
+    clip = torch.from_numpy(stream_frames[:2, 0])
     with pytest.raises(ValueError, match="requires config.static_mode"):
-        if make == "sharded_step":
-            make_sharded_step_fn(cfg, mesh)
-        elif make == "sharded_offline":
+        if make == "sharded_offline":
             make_sharded_offline_fn(cfg, mesh)
+        elif make == "offline_chunk_step":
+            offline_chunk_step(map_carry(lambda x: x[0], one), clip, cfg)
+        elif make == "stabilize_clip_offline":
+            stabilize_clip_offline(map_carry(lambda x: x[0], one), clip, cfg, chunk=2)
+        elif make == "stabilize_streams_sharded":
+            stabilize_streams_sharded(clip[None], cfg, mesh, chunk=2)
         else:
             make(cfg)
 

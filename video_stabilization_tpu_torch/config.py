@@ -30,6 +30,15 @@ class StabilizationMode(enum.IntEnum):
     ROTATION_LOCK = 5
 
 
+class InputMode(enum.Enum):
+    """Input source selection (reference: src/main_utils.hpp:13-18)."""
+
+    UNSPECIFIED = "unspecified"
+    SIMULATOR = "simulator"
+    CAMERA = "camera"
+    FILE = "file"
+
+
 @dataclasses.dataclass(frozen=True)
 class GFTTConfig:
     """Shi-Tomasi good-features-to-track (reference: src/stabilizer.cpp:933-945)."""
@@ -175,6 +184,9 @@ class StabilizerConfig:
         h = self.working_height
         w = int(round(self.frame_width * self.scale_factor))
         return (h, w)
+
+
+DEFAULT_CONFIG = StabilizerConfig()
 
 
 def _rebuild(cls, obj):

@@ -41,15 +41,26 @@ in the others, which frame by frame is the JAX chunk-wide ``cond``
 (``make_offline_batched_fn`` drops it in those too, as the JAX function
 does).
 
-``config.static_mode`` is required (the body branches on the host mode),
-and K must not exceed W (the frame ring is written once per chunk).
+The offline forms require ``config.static_mode``, as the JAX package's do;
+K must not exceed W (the frame ring is written once per chunk).  The
+batched step (K = 1, ``streaming``) also takes streams in mixed modes: with
+no static mode it is given the S streams' host modes (``modes``, one read
+of ``carry.mode`` per call by its caller) and runs the shared stages once
+over all S streams; only the lock stage and the tail depend on the mode.
+The accumulated lock runs over all S streams and is kept where a stream's
+mode accumulates (a ``torch.where`` on a mask made on the device from
+``carry.mode``), the registration lock runs for the ORB and SIFT streams
+alone, each with its own detector, and the tail selects each stream's
+stabilizing homography by its ``carry.mode`` before the one batched output
+warp, which keeps ``warp_projective_fallback`` for every stream, as JAX
+keeps it when no mode is pinned.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -86,14 +97,25 @@ REGISTRATION_MODES = (StabilizationMode.ORB_FULL_LOCK, StabilizationMode.SIFT_FU
 
 
 def require_static_mode(config: StabilizerConfig, what: str) -> StabilizationMode:
-    """The pinned mode; raises without one: the port branches on a host
-    mode, and a batch of mixed modes has no counterpart of the JAX vmap's
-    all-branches select."""
+    """The pinned mode of the offline chunk and serving forms; raises
+    without one, as the JAX package's offline forms and serving do.  (The
+    batched step, its scan and the sharded step take streams in mixed
+    modes instead: :func:`offline_batched_chunk_step`'s ``modes``.)"""
     if config.static_mode is None:
         raise ValueError(
-            f"{what} requires config.static_mode (one pipeline per mode); use "
+            f"{what} requires config.static_mode (the offline chunk and serving run one "
+            "mode for every stream, as in the JAX package); use "
             "dataclasses.replace(config, static_mode=int(mode))")
     return StabilizationMode(int(config.static_mode))
+
+
+def _mode_in(mode: torch.Tensor, modes) -> torch.Tensor:
+    """(S,) bool on ``mode``'s device: each stream's ``carry.mode`` is one
+    of ``modes`` (no host read)."""
+    hit = torch.zeros(mode.shape, dtype=torch.bool, device=mode.device)
+    for m in modes:
+        hit = hit | (mode == int(m))
+    return hit
 
 
 def _presentation_frames(ring: torch.Tensor, frames: torch.Tensor, pres_abs: torch.Tensor,
@@ -121,6 +143,7 @@ def offline_batched_chunk_step(
     config: StabilizerConfig,
     *,
     streaming: bool = False,
+    modes: Optional[Sequence[int]] = None,
 ) -> Tuple[EngineCarry, Tuple[torch.Tensor, torch.Tensor]]:
     """Process K consecutive frames of each of S streams, (S, K, Hf, Wf, C)
     uint8 on the carry's device, with a carry of S streams (every tensor
@@ -133,9 +156,25 @@ def offline_batched_chunk_step(
     fallback, cv2's exact u8 gray under ``reference_compat`` and empty
     corner lanes for ``gftt.selection="host"``.  Without it the chunk
     takes the JAX offline chunk's: the float gray, and the detector of
-    ``corner_config`` (``"host"`` runs the cell selection)."""
-    mode = require_static_mode(config, "offline pipeline")
+    ``corner_config`` (``"host"`` runs the cell selection).
+
+    ``modes``: the S streams' modes as host ints (``carry.mode`` read by
+    the caller), for the batched step in mixed modes: used only when
+    ``config.static_mode`` is None and ``streaming`` is set; without a
+    static mode and without them the call raises."""
     s_n, k = frames.shape[:2]
+    if config.static_mode is not None:
+        mode = StabilizationMode(int(config.static_mode))
+        modes = [mode] * s_n
+        fallback = config.warp_projective_fallback and mode not in BOUNDED_MODES
+    elif modes is not None and streaming:
+        mode = carry.mode[:, None]          # (S, 1): the tail's per-stream select
+        modes = [StabilizationMode(int(m)) for m in modes]
+        if len(modes) != s_n:
+            raise ValueError(f"{len(modes)} modes for {s_n} streams")
+        fallback = config.warp_projective_fallback
+    else:
+        require_static_mode(config, "offline pipeline")
     w = config.total_window
     if k > w:
         raise ValueError(f"chunk size {k} exceeds temporal window {w}")
@@ -215,12 +254,16 @@ def offline_batched_chunk_step(
     ring = carry.frames.view((s_n * w,) + carry.frames.shape[2:])
     ring.index_copy_(0, (streams * w + torch.remainder(ns, w)).reshape(-1).long(), flat)
 
-    # 5. lock transforms
+    # 5. lock transforms: the accumulated lock over every stream, kept
+    # where the stream's mode accumulates; the registration lock for the
+    # ORB and SIFT streams alone; the lock cleared elsewhere
     orb_ref, sift_ref, lock_prev_h = carry.orb_ref, carry.sift_ref, carry.lock_prev_h
     lock_matches = torch.zeros((s_n, k), dtype=torch.int32, device=dev)
+    h_lock = eye.expand(s_n, k, 3, 3)
     accum_h = eye.expand(s_n, 3, 3).clone()
     accum_active = torch.zeros(s_n, dtype=torch.bool, device=dev)
-    if mode in accumulating_modes(config):
+    accumulating = [m in accumulating_modes(config) for m in modes]
+    if any(accumulating):
         with stage("lock"):
             h0 = torch.where(carry.accum_active[:, None, None], carry.accum_h, eye)
             advanced = (n_after - 1 - future) >= 1
@@ -232,46 +275,57 @@ def offline_batched_chunk_step(
             h_lock = _inv3x3(accum_seq)
             accum_h = accum_seq[:, -1]
             accum_active = torch.ones(s_n, dtype=torch.bool, device=dev)
-    elif mode in REGISTRATION_MODES:
-        use_orb = mode == StabilizationMode.ORB_FULL_LOCK
-        refs = orb_ref if use_orb else sift_ref
+            if not all(accumulating):
+                accum_active = _mode_in(carry.mode, accumulating_modes(config))
+                h_lock = torch.where(accum_active[:, None, None, None], h_lock, eye)
+                accum_h = torch.where(accum_active[:, None, None], accum_h, eye)
+    registering = [s for s, m in enumerate(modes) if m in REGISTRATION_MODES]
+    if registering:
         with stage("lock"):
             with stage("lock_detect"):
-                found = [detect_features(f.float(), config, use_orb)
-                         for f in pres_frames.reshape(flat.shape)]
+                found = {(s, j): detect_features(pres_frames[s, j].float(), config,
+                                                 modes[s] == StabilizationMode.ORB_FULL_LOCK)
+                         for s in registering for j in range(k)}
             # each stream's reference is captured on its first frame if
             # unset; the sticky fallback runs frame to frame
             with stage("lock_register"):
-                hs, matches, new_refs, new_prev = [], [], [], []
-                for s in range(s_n):
-                    ref = map_carry(lambda x: x[s], refs)
+                hs, matches, new_refs, new_prev = {}, {}, {}, {}
+                for s in registering:
+                    use_orb = modes[s] == StabilizationMode.ORB_FULL_LOCK
+                    ref = map_carry(lambda x: x[s], orb_ref if use_orb else sift_ref)
                     prev_h = lock_prev_h[s]
+                    h_s, m_s = [], []
                     for j in range(k):
-                        feats, proc, c = found[s * k + j]
+                        feats, proc, c = found[s, j]
                         res = _registration_lock(feats.points, feats.desc, feats.mask, proc,
                                                  ref, prev_h, k_lock[s, j], config, c, use_orb,
                                                  ecc_warp_fallback=streaming)
                         ref, prev_h = res.ref, res.prev_h
-                        hs.append(res.h_lock)
-                        matches.append(res.n_matches)
-                    new_refs.append(ref)
-                    new_prev.append(prev_h)
-        h_lock = torch.stack(hs).reshape(s_n, k, 3, 3)
-        lock_matches = torch.stack(matches).reshape(s_n, k)
-        lock_prev_h = torch.stack(new_prev)
-        refs = map_carry(lambda *xs: torch.stack(xs), *new_refs)
-        if use_orb:
-            orb_ref = refs
-        else:
-            sift_ref = refs
-    else:   # GLOBAL_SMOOTHING: the lock is cleared every step
-        h_lock = eye.expand(s_n, k, 3, 3)
+                        h_s.append(res.h_lock)
+                        m_s.append(res.n_matches)
+                    hs[s], matches[s] = torch.stack(h_s), torch.stack(m_s)
+                    new_refs[s], new_prev[s] = ref, prev_h
+        h_lock = torch.stack([hs[s] if s in hs else h_lock[s] for s in range(s_n)])
+        lock_matches = torch.stack([matches[s] if s in matches else lock_matches[s]
+                                    for s in range(s_n)])
+        lock_prev_h = torch.stack([new_prev[s] if s in new_prev else lock_prev_h[s]
+                                   for s in range(s_n)])
+
+        def refs_of(ref, lock_mode):    # the new reference of each stream in lock_mode
+            mine = [s for s in registering if modes[s] == lock_mode]
+            if not mine:
+                return ref
+            return map_carry(lambda *xs: torch.stack(xs), *[
+                new_refs[s] if s in mine else map_carry(lambda x: x[s], ref)
+                for s in range(s_n)])
+
+        orb_ref = refs_of(orb_ref, StabilizationMode.ORB_FULL_LOCK)
+        sift_ref = refs_of(sift_ref, StabilizationMode.SIFT_FULL_LOCK)
 
     # 6. rotation split, mode select, rescale and one batched warp
     h_stab, outputs, outside = stabilized_outputs(
         mode, h_smooth, h_lock, pres_frames, frames, ns == 0, center, scale_factor,
-        config.warp_projective_fallback and mode not in BOUNDED_MODES,
-        config.ransac.motion_model == "homography")
+        fallback, config.ransac.motion_model == "homography")
     out_valid = torch.ones((s_n, k), dtype=torch.bool, device=dev)
 
     new_carry = EngineCarry(

@@ -152,7 +152,7 @@ def frame_keys(base_key: torch.Tensor, n: torch.Tensor) -> Tuple[torch.Tensor, t
     return prng.fold_in(base_key, n * 2), prng.fold_in(base_key, n * 2 + 1)
 
 
-def stabilized_outputs(mode: int, h_smooth, h_lock, pres_frames, frames, is_first, center,
+def stabilized_outputs(mode, h_smooth, h_lock, pres_frames, frames, is_first, center,
                        scale_factor, projective_fallback: bool, homography: bool = False):
     """The step's tail over any leading dims (none for the streaming step,
     (S, K) for a chunk of S streams): rotation split of ``h_lock``, the
@@ -161,22 +161,34 @@ def stabilized_outputs(mode: int, h_smooth, h_lock, pres_frames, frames, is_firs
     border 0.5 · its mean colour; where ``is_first``, the new frame in
     ``frames`` passes through unwarped.  With ``homography`` (the homography
     motion model) the projective row rescales too and the frames go through
-    ``warp_perspective``, which has no envelope.  Returns (h_stab (..., 3,
-    3), outputs (..., Hf, Wf, C) u8, (...) bool: ``h_stab`` outside the
-    warp kernel's envelope)."""
+    ``warp_perspective``, which has no envelope.  ``mode`` is a host int,
+    or an int32 tensor that broadcasts against the leading dims (the (S, 1)
+    modes of a batch of streams in mixed modes, on the device): each item
+    then takes its own mode's homography by ``torch.where``.  Returns
+    (h_stab (..., 3, 3), outputs (..., Hf, Wf, C) u8, (...) bool: ``h_stab``
+    outside the warp kernel's envelope)."""
     eye = torch.eye(3, dtype=torch.float32, device=h_lock.device)
     with stage("rotation_split"):
         lock_params, lock_ok = decompose_homography(h_lock, center)
     h_lock = torch.where(lock_ok[..., None, None], h_lock, eye)
-    mode = StabilizationMode(int(mode))
-    if mode == StabilizationMode.GLOBAL_SMOOTHING:
-        h_stab = h_smooth
-    elif mode == StabilizationMode.TRANSLATION_LOCK:
-        h_stab = torch.matmul(_rotation_about(lock_params.theta, center), h_lock)
-    elif mode == StabilizationMode.ROTATION_LOCK:
-        h_stab = _rotation_about(-lock_params.theta, center)
+
+    def translation_lock():
+        return torch.matmul(_rotation_about(lock_params.theta, center), h_lock)
+
+    def rotation_lock():
+        return _rotation_about(-lock_params.theta, center)
+
+    if isinstance(mode, torch.Tensor):      # each item its own mode, on the device
+        m = mode[..., None, None]
+        h_stab = torch.where(
+            m == int(StabilizationMode.GLOBAL_SMOOTHING), h_smooth, torch.where(
+                m == int(StabilizationMode.TRANSLATION_LOCK), translation_lock(), torch.where(
+                    m == int(StabilizationMode.ROTATION_LOCK), rotation_lock(), h_lock)))
     else:
-        h_stab = h_lock
+        h_stab = {StabilizationMode.GLOBAL_SMOOTHING: lambda: h_smooth,
+                  StabilizationMode.TRANSLATION_LOCK: translation_lock,
+                  StabilizationMode.ROTATION_LOCK: rotation_lock,
+                  }.get(StabilizationMode(int(mode)), lambda: h_lock)()
 
     # the affine block is scale-invariant: the translation divides by the
     # factor, a projective row multiplies by it

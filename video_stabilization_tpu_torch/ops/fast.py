@@ -34,6 +34,8 @@ CIRCLE_OFFSETS = (
     (3, 0), (3, -1), (2, -2), (1, -3), (0, -3), (-1, -3), (-2, -2), (-3, -1),
 )
 
+ARC_LEN = 9              # contiguous circle pixels that make a corner
+
 # Launches of the CUDA kernel: a plain integer that a caller resets and
 # reads around the run it wants to account for.
 launches = 0

@@ -15,9 +15,19 @@ bit, while a batch of several rounds differently in dense LK's band
 products (cuBLAS) and RANSAC's row sums (the CUDA reductions), whose
 summation order follows the batch's shape.
 
-The port branches on a host mode (``config.static_mode``), so every batched
-form requires it and raises without: a batch of streams in mixed modes has
-no counterpart of the JAX vmap's all-branches select.
+Modes: with ``config.static_mode`` set every stream runs that mode and a
+call reads nothing back.  Without it the batched step, its scan and the
+sharded step run each stream in its own ``carry.mode``, as the JAX package's
+vmap of the dynamic-mode step does: a call reads ``carry.mode`` to the host
+once (the scan once for all its frames; over a mesh once per slot, every
+slot's before any slot is enqueued), runs the shared stages once over all
+S streams, the registration lock only for the ORB and SIFT streams, and
+selects each stream's lock and stabilizing homography on the device
+(``engine/offline.py``).  The output warp then keeps
+``warp_projective_fallback`` for every stream, as JAX keeps it when no mode
+is pinned.  The offline chunk over streams (``make_offline_batched_fn``,
+:func:`make_sharded_offline_fn`) requires ``config.static_mode``, as the
+JAX package's does.
 
 Sharding: a mesh is a list of devices (:func:`make_stream_mesh`), one
 slot per entry.  :func:`shard_carry` splits a carry of S streams into D
@@ -47,7 +57,6 @@ from video_stabilization_tpu_torch.engine.offline import (
     BOUNDED_MODES,
     make_offline_batched_fn,
     offline_batched_chunk_step,
-    require_static_mode,
 )
 from video_stabilization_tpu_torch.engine.state import EngineCarry, Sharded, init_carry, map_carry
 from video_stabilization_tpu_torch.utils import prng
@@ -92,14 +101,17 @@ def make_batched_step_fn(config: StabilizerConfig) -> Callable:
     """(carry of S streams, frames (S, Hf, Wf, C)) -> (carry, (outputs (S,
     Hf, Wf, C), valid (S,))): one frame of every stream, the streaming
     step's semantics per stream (ECC's fallback, the referee's u8 gray and
-    host-GFTT lanes are the streaming step's).
-    Requires ``config.static_mode``."""
-    require_static_mode(config, "make_batched_step_fn")
+    host-GFTT lanes are the streaming step's).  Without
+    ``config.static_mode`` each stream runs its own ``carry.mode``, read
+    once per call, or given as ``modes`` (host ints, one per stream) by a
+    caller that has read it."""
     cfg = _batched_config(config)
 
-    def step(carry: EngineCarry, frames: torch.Tensor):
+    def step(carry: EngineCarry, frames: torch.Tensor, modes=None):
+        if cfg.static_mode is None and modes is None:
+            modes = carry.mode.tolist()     # the call's one host read
         carry, (outputs, valid) = offline_batched_chunk_step(
-            carry, frames[:, None], cfg, streaming=True)
+            carry, frames[:, None], cfg, streaming=True, modes=modes)
         return carry, (outputs[:, 0], valid[:, 0])
 
     return step
@@ -108,13 +120,16 @@ def make_batched_step_fn(config: StabilizerConfig) -> Callable:
 @functools.lru_cache(maxsize=32)
 def make_batched_scan_fn(config: StabilizerConfig) -> Callable:
     """(carry of S streams, frames (T, S, Hf, Wf, C)) -> (carry, (outputs
-    (T, S, Hf, Wf, C), valid (T, S))): the batched step over T frames."""
+    (T, S, Hf, Wf, C), valid (T, S))): the batched step over T frames;
+    without ``config.static_mode`` the modes are read once for the T
+    frames (the step keeps ``carry.mode``)."""
     step = make_batched_step_fn(config)
 
     def scan(carry: EngineCarry, frames: torch.Tensor):
+        modes = carry.mode.tolist() if config.static_mode is None else None
         outputs, valid = [], []
         for f in frames:
-            carry, (out, ok) = step(carry, f)
+            carry, (out, ok) = step(carry, f, modes)
             outputs.append(out)
             valid.append(ok)
         return carry, (torch.stack(outputs), torch.stack(valid))
@@ -207,15 +222,20 @@ def split_streams(frames, mesh: Sequence[torch.device]) -> list:
     return [p.to(dev, non_blocking=True) for p, dev in zip(parts, mesh)]
 
 
-def _over_mesh(fn: Callable, mesh: Sequence[torch.device]) -> Callable:
+def _over_mesh(fn: Callable, mesh: Sequence[torch.device],
+               read_modes: bool = False) -> Callable:
     """``fn`` (a batched form: (carry, frames) -> (carry, (outputs, valid)))
     run on each slot's part of the carry and of the frames.  Every slot is
-    enqueued before the next call reads anything back."""
+    enqueued before the next call reads anything back.  With ``read_modes``
+    each slot's ``carry.mode`` is read first, every slot's before any slot
+    is enqueued, and given to ``fn`` as ``modes``."""
     mesh = tuple(make_stream_mesh(mesh))
 
     def run(carry, frames):
         slots = _slots(carry, mesh)
-        results = [fn(c, f) for c, f in zip(slots, split_streams(frames, mesh))]
+        modes = [c.mode.tolist() if read_modes else None for c in slots]
+        results = [fn(c, f, modes=m)
+                   for c, f, m in zip(slots, split_streams(frames, mesh), modes)]
         if len(mesh) == 1:
             return results[0]
         carries, outs = zip(*results)
@@ -229,8 +249,9 @@ def make_sharded_step_fn(config: StabilizerConfig, mesh: Sequence[torch.device])
     """The batched step over the mesh: (carry placed by :func:`shard_carry`,
     frames (S, Hf, Wf, C)) -> (carry, (outputs (S, Hf, Wf, C), valid (S,))),
     each slot's streams through :func:`make_batched_step_fn` on its device;
-    ``Sharded`` carry and outputs on a mesh of several slots."""
-    return _over_mesh(make_batched_step_fn(config), mesh)
+    ``Sharded`` carry and outputs on a mesh of several slots.  Without
+    ``config.static_mode`` each slot's modes are read once per call."""
+    return _over_mesh(make_batched_step_fn(config), mesh, config.static_mode is None)
 
 
 def make_sharded_offline_fn(config: StabilizerConfig,
