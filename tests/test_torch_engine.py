@@ -262,14 +262,16 @@ def test_stabilize_clip_matches_per_frame(footage):
     assert int(a.carry.n) == 6
 
 
+# dense LK's phases, inside ``lk_track`` (streaming) or ``lk`` (the chunk)
+LK_STAGES = {"lk_sweep", "lk_levels", "lk_level0", "lk_gate"}
 STAGES = {"gray", "pyramid", "lk_track", "inter_frame_fit", "smoothing",
           "nearest_downscale", "preprocess", "match", "lock_ransac", "rotation_split",
-          "warp", "gftt"}
+          "warp", "gftt", "input_h2d", "step"} | LK_STAGES
 LOCK_STAGES = {ORB: {"orb_lock", "orb_detect"},
                SIFT: {"sift_lock", "sift_detect", "sift_scale_space", "ecc"}}
 # the offline chunk's stages (once per chunk) and the lock's own (per frame)
 OFFLINE_STAGES = {"gray_pyramid", "gftt", "lk", "fit", "smoothing", "lock", "lock_detect",
-                  "lock_register", "rotation_split", "warp"}
+                  "lock_register", "rotation_split", "warp"} | LK_STAGES
 OFFLINE_LOCK_STAGES = {"nearest_downscale", "preprocess", "orb_detect", "match",
                        "lock_ransac"}
 

@@ -123,6 +123,66 @@ def test_serve_files_matches_in_memory(clips, tmp_path):
             assert g == encode_y4m_planes(w, True), f"stream {s} frame {i}"
 
 
+SERVE_STAGES = ("y4m_read", "serve_enqueue", "slot0", "serve_wait", "y4m_encode", "y4m_write")
+
+
+def test_serve_files_stage_ranges_and_counters(clips, tmp_path, monkeypatch):
+    """Under the profiler, ``serve_files`` opens ``y4m_read`` once per
+    ``read_yuv_block`` call, ``serve_enqueue`` (and the mesh's ``slot0``)
+    once per chunk, ``serve_wait`` once per drain, and ``y4m_encode`` and
+    ``y4m_write`` once per written frame, only while
+    ``stage_profile.enabled`` is set; ``last_run`` counts each writer's
+    frames and splits its write seconds into encode and pipe write."""
+    from video_stabilization_tpu_torch.utils import stage_profile
+
+    reads = []
+    read = NativeY4MReader.read_yuv_block
+
+    def counted(self, *args, **kw):
+        reads.append(1)
+        return read(self, *args, **kw)
+
+    monkeypatch.setattr(NativeY4MReader, "read_yuv_block", counted)
+    seen = {}
+    for on in (False, True):
+        reads.clear()
+        stage_profile.enabled = on
+        try:
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                done, _ = port_serve(clips, tmp_path / str(on))
+        finally:
+            stage_profile.enabled = False
+        seen[on] = {e.key[6:]: e.count for e in prof.key_averages()
+                    if e.key[6:] in SERVE_STAGES and e.key.startswith("stage:")}
+    assert seen[False] == {}
+    run = serve.last_run
+    chunks = N_FRAMES // CHUNK
+    # a read round per chunk, and the round that meets the end of the files
+    assert len(reads) == N_STREAMS * (chunks + 1)
+    assert done == N_FRAMES and run["chunks"] == chunks
+    assert seen[True] == {"y4m_read": len(reads), "serve_enqueue": chunks, "slot0": chunks,
+                          "serve_wait": chunks, "y4m_encode": N_STREAMS * N_FRAMES,
+                          "y4m_write": N_STREAMS * N_FRAMES}
+    assert run["written"] == [N_FRAMES] * N_STREAMS         # every output is valid
+    assert 0 < run["encode_s"] and 0 < run["pipe_write_s"]
+    assert run["encode_s"] + run["pipe_write_s"] <= run["write_s"]
+
+
+def test_serve_files_logs_the_run_split(clips, tmp_path):
+    """The closing log line gives the host seconds of read, enqueue, wait,
+    encode and pipe write, and the frames written per stream."""
+    lines = []
+    serve.serve_files(clips, str(tmp_path), "smoothing", chunk=CHUNK,
+                      config=config_from_fields(tiny_config()), devices=["cpu"],
+                      log=lines.append)
+    run = serve.last_run
+    for part, key in (("read", "read_s"), ("enqueue", "queue_s"), ("wait", "wait_s"),
+                      ("encode", "encode_s"), ("pipe write", "pipe_write_s")):
+        assert f" {part} {run[key]:.2f}" in lines[-1], part
+    assert lines[-1].endswith(f"frames written per stream {[N_FRAMES] * N_STREAMS}")
+
+
 @pytest.fixture(scope="module")
 def jax_served(clips, tmp_path_factory):
     """The JAX package's serve_files on the same files (its decode, its

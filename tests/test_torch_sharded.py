@@ -180,3 +180,40 @@ def test_sharded_checkpoint(frames, tmp_path, n_slots):
     _, (out_a, _) = fn(carry, nxt)
     _, (out_b, _) = fn(restored, nxt)
     assert torch.equal(unshard(out_a), unshard(out_b))
+
+
+@pytest.mark.parametrize("form", ["offline", "step", "step_mixed_modes"])
+def test_slot_ranges_over_two_slots(frames, form):
+    """Over a mesh of two "cpu" slots, ``stage:slot0`` and ``stage:slot1``
+    each show once per call (around the slot's enqueue), and once more per
+    call where the modes are read (no static mode), only while
+    ``stage_profile.enabled`` is set."""
+    import dataclasses
+
+    from video_stabilization_tpu_torch.utils import stage_profile
+
+    cfg = config_from_fields(tiny_config())
+    if form == "step_mixed_modes":
+        cfg = dataclasses.replace(cfg, static_mode=None)
+    mesh = make_stream_mesh(["cpu", "cpu"])
+    make = make_sharded_offline_fn if form == "offline" else make_sharded_step_fn
+    fn = make(cfg, mesh)
+    carry = shard_carry(port_carry(tiny_config(), 2, 0, 4), mesh)
+    clip = np.swapaxes(frames[:K, :2], 0, 1)                 # (2, K, H, W, 3)
+    calls = [torch.from_numpy(clip)] if form == "offline" else \
+        [torch.from_numpy(clip[:, i]) for i in range(2)]
+    seen = {}
+    for on in (False, True):
+        stage_profile.enabled = on
+        try:
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                for x in calls:
+                    carry, _ = fn(carry, x)
+        finally:
+            stage_profile.enabled = False
+        seen[on] = {e.key[6:]: e.count for e in prof.key_averages()
+                    if e.key.startswith("stage:slot")}
+    per_call = 2 if form == "step_mixed_modes" else 1
+    assert seen[False] == {}
+    assert seen[True] == {"slot0": per_call * len(calls), "slot1": per_call * len(calls)}

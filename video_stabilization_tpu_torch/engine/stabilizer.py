@@ -503,16 +503,20 @@ class Stabilizer:
 
     def stabilize_frame(self, frame) -> torch.Tensor:
         """Feed one (Hf, Wf, C) uint8 BGR frame (array or tensor); returns the
-        stabilized, delayed output frame on the device."""
-        f = self._as_frame(frame)
-        if self._track is None:
-            self.carry, (output, _) = stabilize_step(self.carry, f, self.config, self._mode)
+        stabilized, delayed output frame on the device.  Stage ranges: the
+        frame's upload (``input_h2d``), then the rest (``step``)."""
+        with stage("input_h2d"):
+            f = self._as_frame(frame)
+        with stage("step"):
+            if self._track is None:
+                self.carry, (output, _) = stabilize_step(self.carry, f, self.config,
+                                                         self._mode)
+                return output
+            self.carry, (output, _) = stabilize_step(self.carry, f, self.config, self._mode,
+                                                     self._host_motion(f))
+            if self.config.gftt.selection == "host":
+                self._inject_host_corners(frame)
             return output
-        self.carry, (output, _) = stabilize_step(self.carry, f, self.config, self._mode,
-                                                 self._host_motion(f))
-        if self.config.gftt.selection == "host":
-            self._inject_host_corners(frame)
-        return output
 
     def _host_motion(self, f: torch.Tensor):
         """The host estimator stage: the track prefix on the device, one read

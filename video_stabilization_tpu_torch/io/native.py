@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from video_stabilization_tpu_torch.io.video import FrameSource
+from video_stabilization_tpu_torch.utils.stage_profile import stage
 
 SOURCE = Path(__file__).resolve().parents[2] / "native" / "framebuf.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
@@ -185,15 +186,17 @@ class NativeY4MReader(FrameSource):
 
     def read_yuv_block(self, k: int, out: Optional[np.ndarray] = None) -> Optional[np.ndarray]:
         """Up to ``k`` frames of raw planes as one contiguous (n, yuv_bytes)
-        array, in one native call; None at the end of the file.  ``out``, a
-        C-contiguous (k, yuv_bytes) uint8 array (a view of pinned memory,
-        say), receives them instead of a new array."""
+        array, in one native call (a ``y4m_read`` stage range); None at the
+        end of the file.  ``out``, a C-contiguous (k, yuv_bytes) uint8 array
+        (a view of pinned memory, say), receives them instead of a new
+        array."""
         if out is None:
             out = np.empty((k, self.yuv_bytes), np.uint8)
         elif out.shape != (k, self.yuv_bytes) or out.dtype != np.uint8 \
                 or not out.flags.c_contiguous:
             raise ValueError(f"out must be C-contiguous uint8 of shape {(k, self.yuv_bytes)}")
-        n = self._lib.y4m_read_yuv_block(self._r, out.ctypes.data, k)
+        with stage("y4m_read"):
+            n = self._lib.y4m_read_yuv_block(self._r, out.ctypes.data, k)
         if n == 0:
             return None
         return out[:n]

@@ -19,9 +19,12 @@ from __future__ import annotations
 
 import abc
 import os
+import time
 from typing import Optional, Tuple
 
 import numpy as np
+
+from video_stabilization_tpu_torch.utils.stage_profile import stage
 
 try:
     import cv2
@@ -194,7 +197,10 @@ def encode_y4m_planes(frame_bgr: np.ndarray, c420: bool) -> bytes:
 
 class VideoWriter:
     """Frame sink: ``.y4m`` without any library (C444, or C420 with
-    ``subsampling="420"``), mp4 / avi via cv2."""
+    ``subsampling="420"``), mp4 / avi via cv2.  It counts the ``frames`` it
+    wrote and, for Y4M, the host seconds of their encode (``encode_s``) and
+    of their file writes (``file_write_s``), each also a stage range
+    (``y4m_encode``, ``y4m_write``); cv2's encode and write are not timed."""
 
     def __init__(self, path: str, fps: float, frame_size: Tuple[int, int],
                  subsampling: str = "444"):
@@ -203,6 +209,9 @@ class VideoWriter:
         self.h, self.w = frame_size
         self._y4m = path.endswith(".y4m")
         self._c420 = subsampling == "420"
+        self.frames = 0
+        self.encode_s = 0.0
+        self.file_write_s = 0.0
         if self._c420 and (self.h % 2 or self.w % 2):
             raise ValueError("C420 output needs even frame dimensions")
         if self._y4m:
@@ -218,10 +227,18 @@ class VideoWriter:
             self._vw = cv2.VideoWriter(path, fourcc, fps, (self.w, self.h))
 
     def write(self, frame_bgr: np.ndarray) -> None:
-        if self._y4m:
-            self._f.write(b"FRAME\n" + encode_y4m_planes(frame_bgr, self._c420))
-        else:
+        self.frames += 1
+        if not self._y4m:
             self._vw.write(frame_bgr)
+            return
+        t0 = time.perf_counter()
+        with stage("y4m_encode"):
+            data = b"FRAME\n" + encode_y4m_planes(frame_bgr, self._c420)
+        t1 = time.perf_counter()
+        with stage("y4m_write"):
+            self._f.write(data)
+        self.encode_s += t1 - t0
+        self.file_write_s += time.perf_counter() - t1
 
     def close(self) -> None:
         if self._y4m:

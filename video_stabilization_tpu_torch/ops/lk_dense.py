@@ -33,6 +33,7 @@ from video_stabilization_tpu_torch.ops.affine_warp import warp_affine
 from video_stabilization_tpu_torch.ops.gradients import scharr_xy
 from video_stabilization_tpu_torch.ops.patches import extract_patches
 from video_stabilization_tpu_torch.ops.warp import _inv3x3
+from video_stabilization_tpu_torch.utils.stage_profile import stage
 
 
 @functools.lru_cache(maxsize=32)
@@ -263,7 +264,9 @@ def lk_track_dense(pyr_prev: Sequence[torch.Tensor], pyr_next: Sequence[torch.Te
     A batch of B pairs: levels (B, h_l, w_l), ``points`` (B, N, 2) and
     ``mask`` (B, N) give a result with the leading B; each of the four
     warps is then one ``warp_affine`` of the whole batch.  One pair is the
-    batch of one."""
+    batch of one.  Stage ranges: ``lk_sweep`` (the top level's sweep and
+    fit), ``lk_levels`` (the mid levels), ``lk_level0`` (level 0's Newton
+    rounds) and ``lk_gate`` (the sampling and the gates)."""
     from video_stabilization_tpu_torch.ops.lk import LKResult
 
     if pyr_prev[0].dim() == 2:
@@ -273,85 +276,91 @@ def lk_track_dense(pyr_prev: Sequence[torch.Tensor], pyr_next: Sequence[torch.Te
     win = config.window_size
     thr = config.min_eig_threshold
     n_levels = len(pyr_prev) - 1
-    points = points.float()
-    valid = mask.bool()
-    h0, w0 = pyr_prev[0].shape[-2:]
-    dev = points.device
-    t_cur = torch.eye(3, dtype=torch.float32, device=dev).expand(
-        points.shape[:-2] + (3, 3))
+    with stage("lk_sweep"):
+        points = points.float()
+        valid = mask.bool()
+        h0, w0 = pyr_prev[0].shape[-2:]
+        dev = points.device
+        t_cur = torch.eye(3, dtype=torch.float32, device=dev).expand(
+            points.shape[:-2] + (3, 3))
 
-    # coarse dense sweep at the top level only
-    img_i, img_j = pyr_prev[n_levels], pyr_next[n_levels]
-    rng = max(2, min(8, min(img_i.shape[-2:]) // 4))
-    flow, interior = _dense_residual_flow(img_i, img_j, rng, win)
-    me = _min_eig_dense(*scharr_xy(img_i), win)
-    t_cur = _grid_fit(t_cur, flow, interior, me, float(2 ** n_levels), thr,
-                      resid_px=max(1.5, rng / 2.0), vote_range=rng + 1)
+        # coarse dense sweep at the top level only
+        img_i, img_j = pyr_prev[n_levels], pyr_next[n_levels]
+        rng = max(2, min(8, min(img_i.shape[-2:]) // 4))
+        flow, interior = _dense_residual_flow(img_i, img_j, rng, win)
+        me = _min_eig_dense(*scharr_xy(img_i), win)
+        t_cur = _grid_fit(t_cur, flow, interior, me, float(2 ** n_levels), thr,
+                          resid_px=max(1.5, rng / 2.0), vote_range=rng + 1)
 
     # mid levels: warp, residual (sweep at the first, Newton below), refit
-    for level in range(n_levels - 1, 0, -1):
-        img_i, img_j = pyr_prev[level], pyr_next[level]
-        scale = float(2 ** level)
-        ix, iy = scharr_xy(img_i)
-        me = _min_eig_dense(ix, iy, win)
-        j_w = warp_affine(img_j, _inv3x3(_scale_h(t_cur, scale)), border_value=0.0,
-                          projective_fallback=config.warp_fallback)
-        if level == n_levels - 1:
-            delta, ok = _dense_residual_flow(img_i, j_w, 3, win)
-            ok = ok & (me > thr)
-            vote_range = 4
-        else:
-            gxx, gxy, gyy = _structure(ix, iy, win)
-            det = gxx * gyy - gxy * gxy
-            ok = (me > thr) & (det > 1e-12)
-            det_safe = torch.where(ok, det, torch.ones_like(det))
-            delta = _newton_delta(j_w - img_i, ix, iy, gxx, gxy, gyy, det_safe, ok, win)
-            vote_range = 3
-        t_cur = _grid_fit(t_cur, delta, ok, me, scale, thr, resid_px=2.0,
-                          vote_range=vote_range)
+    with stage("lk_levels"):
+        for level in range(n_levels - 1, 0, -1):
+            img_i, img_j = pyr_prev[level], pyr_next[level]
+            scale = float(2 ** level)
+            ix, iy = scharr_xy(img_i)
+            me = _min_eig_dense(ix, iy, win)
+            j_w = warp_affine(img_j, _inv3x3(_scale_h(t_cur, scale)), border_value=0.0,
+                              projective_fallback=config.warp_fallback)
+            if level == n_levels - 1:
+                delta, ok = _dense_residual_flow(img_i, j_w, 3, win)
+                ok = ok & (me > thr)
+                vote_range = 4
+            else:
+                gxx, gxy, gyy = _structure(ix, iy, win)
+                det = gxx * gyy - gxy * gxy
+                ok = (me > thr) & (det > 1e-12)
+                det_safe = torch.where(ok, det, torch.ones_like(det))
+                delta = _newton_delta(j_w - img_i, ix, iy, gxx, gxy, gyy, det_safe, ok, win)
+                vote_range = 3
+            t_cur = _grid_fit(t_cur, delta, ok, me, scale, thr, resid_px=2.0,
+                              vote_range=vote_range)
 
     # level 0: two dense Newton rounds with a refit between
-    img_i, img_j = pyr_prev[0], pyr_next[0]
-    ix, iy = scharr_xy(img_i)
-    gxx, gxy, gyy = _structure(ix, iy, win)
-    det = gxx * gyy - gxy * gxy
-    min_eig = _min_eig(gxx, gxy, gyy, win)
-    good = (min_eig > thr) & (det > 1e-12)
-    det_safe = torch.where(good, det, torch.ones_like(det))
-    delta = err = None
-    for rnd in range(2):
-        j_w = warp_affine(img_j, _inv3x3(t_cur), border_value=0.0,
-                          projective_fallback=config.warp_fallback)
-        r = j_w - img_i
-        delta = _newton_delta(r, ix, iy, gxx, gxy, gyy, det_safe, good, win)
-        err = _box_same(r.abs(), win) / float(win * win)
-        if rnd == 0:
-            t_cur = _grid_fit(t_cur, delta, torch.ones_like(good), min_eig, 1.0, thr,
-                              resid_px=2.0, vote_range=3)
+    with stage("lk_level0"):
+        img_i, img_j = pyr_prev[0], pyr_next[0]
+        ix, iy = scharr_xy(img_i)
+        gxx, gxy, gyy = _structure(ix, iy, win)
+        det = gxx * gyy - gxy * gxy
+        min_eig = _min_eig(gxx, gxy, gyy, win)
+        good = (min_eig > thr) & (det > 1e-12)
+        det_safe = torch.where(good, det, torch.ones_like(det))
+        delta = err = None
+        for rnd in range(2):
+            j_w = warp_affine(img_j, _inv3x3(t_cur), border_value=0.0,
+                              projective_fallback=config.warp_fallback)
+            r = j_w - img_i
+            delta = _newton_delta(r, ix, iy, gxx, gxy, gyy, det_safe, good, win)
+            err = _box_same(r.abs(), win) / float(win * win)
+            if rnd == 0:
+                t_cur = _grid_fit(t_cur, delta, torch.ones_like(good), min_eig, 1.0, thr,
+                                  resid_px=2.0, vote_range=3)
 
-    samp = _sample_maps(torch.stack([delta[..., 0], delta[..., 1], err, min_eig], -3), points)
-    d_pts = samp[..., 0:2, :].mT
-    err_pts = samp[..., 2, :]
-    me_pts = samp[..., 3, :]
-    new_pts = _apply_h(t_cur, points + d_pts)
-    # independent-motion gate: a large residual delta after two Newton rounds
-    saturated = d_pts.abs().amax(-1) > 1.5
-    if config.corner_polish_iters > 0:
-        new_pts, saturated = _corner_polish(img_i, img_j, points, new_pts, saturated,
-                                            config.corner_polish_iters, win)
+    # the maps at the corners, the optional polish, the status and cohort gates
+    with stage("lk_gate"):
+        samp = _sample_maps(torch.stack([delta[..., 0], delta[..., 1], err, min_eig], -3),
+                            points)
+        d_pts = samp[..., 0:2, :].mT
+        err_pts = samp[..., 2, :]
+        me_pts = samp[..., 3, :]
+        new_pts = _apply_h(t_cur, points + d_pts)
+        # independent-motion gate: a large residual delta after two Newton rounds
+        saturated = d_pts.abs().amax(-1) > 1.5
+        if config.corner_polish_iters > 0:
+            new_pts, saturated = _corner_polish(img_i, img_j, points, new_pts, saturated,
+                                                config.corner_polish_iters, win)
 
-    in_final = ((new_pts[..., 0] >= 0.0) & (new_pts[..., 1] >= 0.0)
-                & (new_pts[..., 0] < w0) & (new_pts[..., 1] < h0))
-    status = (valid & in_final & (me_pts > thr) & torch.isfinite(err_pts)
-              & torch.isfinite(new_pts).all(-1) & ~saturated)
-    # residual-vs-cohort gate around the median error of each pair's valid
-    # points
-    n_pts = points.shape[-2]
-    masked_err = torch.where(status, err_pts, torch.inf)
-    cnt = status.to(torch.int64).sum(-1)
-    mid = (cnt // 2).clamp(0, n_pts - 1)
-    med = torch.sort(masked_err, -1).values.gather(-1, mid[..., None])[..., 0]
-    med = torch.where(torch.isfinite(med), med, 0.0)
-    status = status & (err_pts <= torch.clamp(5.0 * med, min=10.0)[..., None])
-    out_pts = torch.where(status[..., None], new_pts, points)
+        in_final = ((new_pts[..., 0] >= 0.0) & (new_pts[..., 1] >= 0.0)
+                    & (new_pts[..., 0] < w0) & (new_pts[..., 1] < h0))
+        status = (valid & in_final & (me_pts > thr) & torch.isfinite(err_pts)
+                  & torch.isfinite(new_pts).all(-1) & ~saturated)
+        # residual-vs-cohort gate around the median error of each pair's valid
+        # points
+        n_pts = points.shape[-2]
+        masked_err = torch.where(status, err_pts, torch.inf)
+        cnt = status.to(torch.int64).sum(-1)
+        mid = (cnt // 2).clamp(0, n_pts - 1)
+        med = torch.sort(masked_err, -1).values.gather(-1, mid[..., None])[..., 0]
+        med = torch.where(torch.isfinite(med), med, 0.0)
+        status = status & (err_pts <= torch.clamp(5.0 * med, min=10.0)[..., None])
+        out_pts = torch.where(status[..., None], new_pts, points)
     return LKResult(points=out_pts, status=status, error=err_pts)

@@ -60,6 +60,7 @@ from video_stabilization_tpu_torch.engine.offline import (
 )
 from video_stabilization_tpu_torch.engine.state import EngineCarry, Sharded, init_carry, map_carry
 from video_stabilization_tpu_torch.utils import prng
+from video_stabilization_tpu_torch.utils.stage_profile import stage
 
 STREAM_AXIS = "streams"
 
@@ -228,14 +229,21 @@ def _over_mesh(fn: Callable, mesh: Sequence[torch.device],
     run on each slot's part of the carry and of the frames.  Every slot is
     enqueued before the next call reads anything back.  With ``read_modes``
     each slot's ``carry.mode`` is read first, every slot's before any slot
-    is enqueued, and given to ``fn`` as ``modes``."""
+    is enqueued, and given to ``fn`` as ``modes``.  Slot d's read and its
+    enqueue each open a ``slot<d>`` stage range."""
     mesh = tuple(make_stream_mesh(mesh))
 
     def run(carry, frames):
         slots = _slots(carry, mesh)
-        modes = [c.mode.tolist() if read_modes else None for c in slots]
-        results = [fn(c, f, modes=m)
-                   for c, f, m in zip(slots, split_streams(frames, mesh), modes)]
+        modes = [None] * len(mesh)
+        if read_modes:
+            for d, c in enumerate(slots):
+                with stage(f"slot{d}"):
+                    modes[d] = c.mode.tolist()
+        results = []
+        for d, (c, f) in enumerate(zip(slots, split_streams(frames, mesh))):
+            with stage(f"slot{d}"):
+                results.append(fn(c, f, modes=modes[d]))
         if len(mesh) == 1:
             return results[0]
         carries, outs = zip(*results)

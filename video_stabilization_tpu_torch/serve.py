@@ -52,11 +52,18 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from video_stabilization_tpu_torch.utils.stage_profile import stage
+
 # the last serve_files run's counts, its mesh and its wall time split
 # (seconds): fread, queueing (H2D, decode, the chunk, the D2H copies), the
-# drain's event waits and its writes; per slot, device ms of its H2D copies,
-# its decode and chunk, and its D2H copies (CUDA events, on the card only;
-# slots that share a card share its stream, so their spans overlap)
+# drain's event waits and its writes (``write_s``: ``_drain`` whole), and
+# within the writes the writers' own Y4M encode and file or pipe write, over
+# all writers (``encode_s``, ``pipe_write_s``); the frames each writer wrote
+# (``written``); per slot, device ms of its H2D copies, its decode and chunk,
+# and its D2H copies (CUDA events, on the card only; slots that share a card
+# share its stream, so their spans overlap).  The loop's parts also open
+# stage ranges: ``serve_enqueue`` per chunk, ``serve_wait`` per drain, and
+# the readers' and writers' ``y4m_read``, ``y4m_encode`` and ``y4m_write``.
 last_run: dict = {}
 # ``torch.cuda.set_sync_debug_mode`` of the chunk loop on the card (after
 # the set-up): "warn" lists every synchronizing call the loop makes; the
@@ -231,13 +238,14 @@ def serve_files(paths: Sequence[str], output_dir: Optional[str], mode,
     def drain(buf: _Buffers) -> None:
         nonlocal waits
         t0 = time.perf_counter()
-        if cuda:
-            for d, ev in enumerate(buf.events):
-                ev["copied"].synchronize()         # this chunk's slot d only
-                waits += 1
-                split["h2d_ms"][d] += ev["start"].elapsed_time(ev["uploaded"])
-                split["compute_ms"][d] += ev["uploaded"].elapsed_time(ev["computed"])
-                split["d2h_ms"][d] += ev["computed"].elapsed_time(ev["copied"])
+        with stage("serve_wait"):
+            if cuda:
+                for d, ev in enumerate(buf.events):
+                    ev["copied"].synchronize()         # this chunk's slot d only
+                    waits += 1
+                    split["h2d_ms"][d] += ev["start"].elapsed_time(ev["uploaded"])
+                    split["compute_ms"][d] += ev["uploaded"].elapsed_time(ev["computed"])
+                    split["d2h_ms"][d] += ev["computed"].elapsed_time(ev["copied"])
         t1 = time.perf_counter()
         if writers is not None:
             _drain(writers, buf.out.numpy(), buf.valid.numpy())
@@ -258,21 +266,22 @@ def serve_files(paths: Sequence[str], output_dir: Optional[str], mode,
             if any(b is None or len(b) < chunk for b in blocks):
                 break                   # the shortest stream sets the length
             t0 = time.perf_counter()
-            buf.events = [{} for _ in mesh]
-            frames = []
-            for d, dev in enumerate(mesh):      # each slot's streams on its card
-                buf.record(d, "start", dev)
-                yuv = buf.yuv[streams_of(d)].to(dev, non_blocking=True)
-                buf.record(d, "uploaded", dev)
-                frames.append(yuv_flat_to_bgr(yuv, h, w, c420))
-            carry, (out, valid) = offline(carry, Sharded(tuple(frames)))
-            outs = out.parts if n_slots > 1 else (out,)
-            valids = valid.parts if n_slots > 1 else (valid,)
-            for d, dev in enumerate(mesh):
-                buf.record(d, "computed", dev)
-                buf.out[streams_of(d)].copy_(outs[d], non_blocking=True)
-                buf.valid[streams_of(d)].copy_(valids[d], non_blocking=True)
-                buf.record(d, "copied", dev)
+            with stage("serve_enqueue"):
+                buf.events = [{} for _ in mesh]
+                frames = []
+                for d, dev in enumerate(mesh):      # each slot's streams on its card
+                    buf.record(d, "start", dev)
+                    yuv = buf.yuv[streams_of(d)].to(dev, non_blocking=True)
+                    buf.record(d, "uploaded", dev)
+                    frames.append(yuv_flat_to_bgr(yuv, h, w, c420))
+                carry, (out, valid) = offline(carry, Sharded(tuple(frames)))
+                outs = out.parts if n_slots > 1 else (out,)
+                valids = valid.parts if n_slots > 1 else (valid,)
+                for d, dev in enumerate(mesh):
+                    buf.record(d, "computed", dev)
+                    buf.out[streams_of(d)].copy_(outs[d], non_blocking=True)
+                    buf.valid[streams_of(d)].copy_(valids[d], non_blocking=True)
+                    buf.record(d, "copied", dev)
             split["queue_s"] += time.perf_counter() - t0
             # drain the PREVIOUS chunk while the cards compute this one
             if pending is not None:
@@ -286,14 +295,20 @@ def serve_files(paths: Sequence[str], output_dir: Optional[str], mode,
 
     for r in readers:
         r.close()
-    if writers is not None:
-        for wr in writers:
-            wr.close()
+    for wr in writers or ():
+        wr.close()
+    encode_s = sum(wr.encode_s for wr in writers or ())
+    pipe_write_s = sum(wr.file_write_s for wr in writers or ())
+    written = [wr.frames for wr in writers or ()]
     last_run.clear()
     last_run.update(streams=s, frames=done, chunks=i, chunk=chunk, wall_s=dt,
-                    devices=[str(d) for d in mesh], event_waits=waits, **split)
-    log(f"served {done} frames x {s} streams in {dt:.2f}s "
-        f"({done * s / dt:.1f} aggregate fps)" if done else "no full chunks")
+                    devices=[str(d) for d in mesh], event_waits=waits, **split,
+                    encode_s=encode_s, pipe_write_s=pipe_write_s, written=written)
+    # an operator's view of the run's split, with no profiler
+    log(f"served {done} frames x {s} streams in {dt:.2f}s ({done * s / dt:.1f} aggregate "
+        f"fps); host s: read {split['read_s']:.2f}, enqueue {split['queue_s']:.2f}, wait "
+        f"{split['wait_s']:.2f}, encode {encode_s:.2f}, pipe write {pipe_write_s:.2f}; "
+        f"frames written per stream {written}" if done else "no full chunks")
     return done, dt
 
 

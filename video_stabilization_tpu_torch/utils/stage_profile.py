@@ -15,9 +15,10 @@ this tool profiles (``enabled``) and costs one call otherwise.  On shaky
 simulator footage rendered on the card it runs
 ``--warm`` frames, times ``--frames`` frames with CUDA events, then runs
 ``--frames`` more under ``torch.profiler`` and prints per frame: the
-unprofiled ms, the device-busy ms (kernel time) and idle share, the kernel
-count, the host ms, device events and device ms of each stage, and the
-device time of the heaviest kernels and of the hand-written ones.  With
+unprofiled ms, the profiled ms, the device-busy ms (kernel time) and the
+idle share of the profiled window (busy time and wall time both from it),
+the kernel count, the host ms, device events and device ms of each stage,
+and the device time of the heaviest kernels and of the hand-written ones.  With
 ``--chunk K`` it drives the offline chunk step (``engine/offline.py``) in
 K-frame chunks instead, ``--warm`` and ``--frames`` rounded up to whole
 chunks; its stages are those of the chunk.  With ``--streams S`` it drives
@@ -43,15 +44,18 @@ import numpy as np
 import torch
 
 HAND_WRITTEN = ("fast_levels_kernel", "affine_warp_kernel")
-# set by main() around the profiled frames only
+# the one switch of every stage range: set by main() around the profiled
+# frames only, and by whatever else profiles the program
 enabled = False
+_OFF = contextlib.nullcontext()
 
 
 def stage(name: str):
-    """A ``stage:<name>`` profiler range while ``enabled``, else a no-op."""
+    """A ``stage:<name>`` profiler range while ``enabled``, else a shared
+    no-op context."""
     if enabled:
         return torch.profiler.record_function(f"stage:{name}")
-    return contextlib.nullcontext()
+    return _OFF
 
 
 def _device_us(evt) -> float:
@@ -336,7 +340,7 @@ def main() -> int:
           f"{card}")
     print(f"wall {wall:.3f} ms/frame (CUDA events, unprofiled), {wall_prof:.3f} under "
           f"the profiler; device busy {busy:.3f} ms/frame, idle share "
-          f"{1 - busy / wall:.3f} of the unprofiled wall; {count / n:.0f} device "
+          f"{1 - busy / wall_prof:.3f} of the profiled wall; {count / n:.0f} device "
           "events per frame")
     stages = [e for e in events if e.key.startswith("stage:")
               and e.device_type == torch.autograd.DeviceType.CPU]

@@ -6,9 +6,12 @@ Port of ``video_stabilization_tpu/utils/timing.py``:
   on the card (the launches are asynchronous, so a host clock alone times
   the queueing), a ``synchronize`` and the host clock elsewhere;
 - :class:`StageTimer`: the rolling average the reference prints
-  (``avg += (x - avg) / n``);
-- :func:`profiler_trace`: a ``torch.profiler`` trace of the enclosed work,
-  written for TensorBoard / Perfetto.
+  (``avg += (x - avg) / n``).
+
+The JAX module's ``profiler_trace`` has no counterpart: the stage ranges
+of ``utils/stage_profile.py`` (on while ``stage_profile.enabled`` is set)
+label a ``torch.profiler`` trace, and its tool and the benchmark
+(``portbench/trace.py``) profile the program themselves.
 
 The JAX module's ``enable_compile_cache`` (JAX's persistent compilation
 cache) has no counterpart: the port compiles nothing at run time but its
@@ -18,7 +21,6 @@ kernels, which ``utils/cuda_build.py`` keeps under ``build/kernels/``.
 from __future__ import annotations
 
 import time
-from pathlib import Path
 from typing import Any, Callable, Dict
 
 import torch
@@ -89,17 +91,3 @@ class StageTimer:
         parts = [f"{k}: {v:.2f} ms (n={self._count[k]})" for k, v in self._avg.items()]
         print("[timings] " + "; ".join(parts), file=out)
 
-
-TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "trace"
-
-
-def profiler_trace(log_dir: str | Path = TRACE_DIR):
-    """Context manager: a ``torch.profiler`` trace (host ops and, on the
-    card, its kernels) of the enclosed work, written to ``log_dir``
-    (``build/trace/`` of the checkout by default) for TensorBoard or
-    Perfetto."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    return torch.profiler.profile(
-        activities=acts, on_trace_ready=torch.profiler.tensorboard_trace_handler(str(log_dir)))
