@@ -131,6 +131,15 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    sub-batch through the one-device mixed form, one mode read per slot per
    call, no peer-to-peer copy, the carry on its slots (``--mesh-only`` runs
    this part too).
+15. the Y4M encode kernel (``csrc/y4m_encode.cu``, run after phase 10; it
+   replaces no TPU kernel): on serving's chunk at config 5 (8 streams x 8
+   frames of 1080x1920, random content), C420 and C444, against its plain
+   version on the card and against the numpy encode (``io/video.py::
+   encode_y4m_planes``) on the host for the first frames, exact; its
+   launches per served chunk from phases 10 and 13 (one per slot and
+   chunk, and every served frame encoded on the card); its time by CUDA
+   graph and back to back against its byte bound, beside the plain
+   version's.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -242,6 +251,16 @@ SERVE_ORB_ARGV = ["--simulator", "2", "--frames", "16", "--sim-size", "1920x1080
 # phase 11: the app at its defaults (720x1280 simulator, working height
 # 360, window 60 + 1 + 45)
 APP_FRAMES = 96
+# phase 15: the Y4M encode of one served chunk at config 5; per pixel it
+# reads 3 B of BGR and writes 1.5 B (C420) or 3 B (C444) of planes, and
+# computes Y (3 products, 2 sums), U and V (a difference, a product and a
+# sum each), the clip and the cast of each output byte (2 each: 3 a pixel
+# at C420, 6 at C444) and, at C420, the 2x2 means of U and V (3 sums and a
+# product each, over 4 px: 2 a pixel)
+Y4M_FRAMES = N_STREAMS * SERVE_CHUNK
+Y4M_NUMPY_FRAMES = 8     # frames also held against the numpy encode
+Y4M_BYTES = {True: 3 + 1.5, False: 3 + 3}
+Y4M_OPS = {True: 11 + 3 + 2, False: 11 + 6}
 
 
 def rigid(theta_deg: float, tx: float = 0.0, ty: float = 0.0) -> np.ndarray:
@@ -1927,7 +1946,7 @@ def phase_serve(seed: int, dev, card: str, mesh: list, cards: str) -> dict:
     from video_stabilization_tpu_torch.config import StabilizationMode
     from video_stabilization_tpu_torch.io.native import NativeY4MReader
     from video_stabilization_tpu_torch.ops import affine_warp as aw
-    from video_stabilization_tpu_torch.ops import fast
+    from video_stabilization_tpu_torch.ops import fast, y4m
     from video_stabilization_tpu_torch.ops.image import yuv_flat_to_bgr
     from video_stabilization_tpu_torch.utils.stage_profile import _device_us
 
@@ -1937,6 +1956,7 @@ def phase_serve(seed: int, dev, card: str, mesh: list, cards: str) -> dict:
         out_dir = os.path.join(tmp, "out")
         aw.launches = 0
         fast.launches = 0
+        y4m.launches = 0
         serve.loop_sync_debug = "warn"
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -1945,7 +1965,7 @@ def phase_serve(seed: int, dev, card: str, mesh: list, cards: str) -> dict:
             finally:
                 serve.loop_sync_debug = None
         run = dict(serve.last_run)
-        launches, fast_launches = aw.launches, fast.launches
+        launches, fast_launches, y4m_launches = aw.launches, fast.launches, y4m.launches
         syncs = loop_syncs(caught)
         inputs = run["inputs"]
         s, frames, chunks = run["streams"], run["frames"], run["chunks"]
@@ -2024,10 +2044,14 @@ def phase_serve(seed: int, dev, card: str, mesh: list, cards: str) -> dict:
           + (f" {sorted(set(syncs))}" if syncs else "")
           + f"; event waits {run['event_waits']} ({run['event_waits'] / chunks:.0f} per "
           "chunk, the drain's)", flush=True)
+    print(f"{tag}: Y4M encode launches {y4m_launches} ({y4m_launches / chunks:.2f} per chunk, "
+          f"1 expected); frames encoded on the card {run['device_encoded']} of {s * frames}; "
+          f"host encode in the drain {run['encode_s']:.4f} s", flush=True)
     print(f"{tag}: wall {run['wall_s']:.3f} s: read {run['read_s']:.3f} s, queueing H2D + "
-          f"decode + chunk + D2H {run['queue_s']:.3f} s, drain wait {run['wait_s']:.3f} s, "
-          f"drain write {run['write_s']:.3f} s (host clock); device H2D "
-          f"{sum(run['h2d_ms']):.2f} ms, decode + chunk {sum(run['compute_ms']):.2f} ms, D2H "
+          f"decode + chunk + encode + D2H {run['queue_s']:.3f} s, drain wait "
+          f"{run['wait_s']:.3f} s, drain write {run['write_s']:.3f} s (pipe write "
+          f"{run['pipe_write_s']:.3f} s) (host clock); device H2D {sum(run['h2d_ms']):.2f} ms, "
+          f"decode + chunk + encode {sum(run['compute_ms']):.2f} ms, D2H "
           f"{sum(run['d2h_ms']):.2f} ms (CUDA events); {fps:.1f} frames/s in all, "
           f"{fps / s:.2f} per stream", flush=True)
     print(f"{tag}: device idle share in the loop {idle:.3f} (kernel time {busy_per_chunk:.2f} "
@@ -2047,6 +2071,9 @@ def phase_serve(seed: int, dev, card: str, mesh: list, cards: str) -> dict:
         raise AssertionError(f"{tag}: the card's YUV decode differs from the native reader")
     if launches != BATCHED_LAUNCHES * chunks:
         raise AssertionError(f"{tag}: {launches} warp launches in {chunks} chunks")
+    if y4m_launches != chunks or run["device_encoded"] != s * frames:
+        raise AssertionError(f"{tag}: {y4m_launches} encode launches in {chunks} chunks, "
+                             f"{run['device_encoded']} frames encoded on the card")
     if syncs or run["event_waits"] != chunks:
         raise AssertionError(f"{tag}: loop syncs {syncs}, event waits {run['event_waits']}")
     if orb_fast != orb_run["streams"] * orb_run["frames"]:
@@ -2054,7 +2081,8 @@ def phase_serve(seed: int, dev, card: str, mesh: list, cards: str) -> dict:
     # "frames": batched frames (one of each stream), as config 5's offline path
     return {"launches": launches, "frames": frames, "chunks": chunks, "fps": fps,
             "idle": idle, "syncs": len(syncs), "fast_launches": orb_fast,
-            "fast_frames": orb_run["streams"] * orb_run["frames"], "sharded": sharded}
+            "fast_frames": orb_run["streams"] * orb_run["frames"], "sharded": sharded,
+            "y4m_launches": y4m_launches, "device_encoded": run["device_encoded"]}
 
 
 def serve_over_mesh(inputs: list, footage: torch.Tensor, mesh: list, out_dir: str,
@@ -2071,12 +2099,13 @@ def serve_over_mesh(inputs: list, footage: torch.Tensor, mesh: list, out_dir: st
     from video_stabilization_tpu_torch import serve
     from video_stabilization_tpu_torch.config import StabilizationMode
     from video_stabilization_tpu_torch.ops import affine_warp as aw
-    from video_stabilization_tpu_torch.ops import fast
+    from video_stabilization_tpu_torch.ops import fast, y4m
     from video_stabilization_tpu_torch.parallel import unshard
 
     argv = ["--files", *inputs, "--past-window", "1.0", "--future-window", "0.5", "--chunk",
             str(SERVE_CHUNK), "--mode", "smoothing", "--output-dir", out_dir]
     aw.launches = 0
+    y4m.launches = 0
     serve.loop_sync_debug = "warn"
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -2085,7 +2114,7 @@ def serve_over_mesh(inputs: list, footage: torch.Tensor, mesh: list, out_dir: st
         finally:
             serve.loop_sync_debug = None
     run = dict(serve.last_run)
-    launches, syncs = aw.launches, loop_syncs(caught)
+    launches, syncs, y4m_launches = aw.launches, loop_syncs(caught), y4m.launches
     used = [torch.device(d) for d in run["devices"]]
     s, frames, chunks = run["streams"], run["frames"], run["chunks"]
     h, w = SERVE_SIZE
@@ -2129,7 +2158,9 @@ def serve_over_mesh(inputs: list, footage: torch.Tensor, mesh: list, out_dir: st
           f"set_sync_debug_mode('warn'): {len(syncs)}"
           + (f" {sorted(set(syncs))}" if syncs else "")
           + f"; event waits {run['event_waits']} ({run['event_waits'] / chunks:.0f} per chunk: "
-          "one per slot)", flush=True)
+          f"one per slot); Y4M encode launches {y4m_launches} ({y4m_launches / chunks:.2f} per "
+          f"chunk, one per slot expected), frames encoded on the cards "
+          f"{run['device_encoded']} of {s * frames}", flush=True)
     print(f"{tag}: one profiled chunk, copies by card "
           + ", ".join(f"cuda:{i} {sp['copies']}" for i, sp in sorted(split.items()))
           + f": from pinned memory {from_pinned} ({slots} uploads expected), into it "
@@ -2151,6 +2182,9 @@ def serve_over_mesh(inputs: list, footage: torch.Tensor, mesh: list, out_dir: st
                              f"(written {written}, valid {n_valid}, equal {equal})")
     if launches != BATCHED_LAUNCHES * slots * chunks:
         raise AssertionError(f"{tag}: {launches} warp launches in {chunks} chunks")
+    if y4m_launches != slots * chunks or run["device_encoded"] != s * frames:
+        raise AssertionError(f"{tag}: {y4m_launches} encode launches in {chunks} chunks, "
+                             f"{run['device_encoded']} frames encoded on the cards")
     if syncs or run["event_waits"] != slots * chunks:
         raise AssertionError(f"{tag}: loop syncs {syncs}, event waits {run['event_waits']}")
     if from_pinned < slots or to_pinned != 2 * slots or to_pageable or ppp:
@@ -2162,7 +2196,57 @@ def serve_over_mesh(inputs: list, footage: torch.Tensor, mesh: list, out_dir: st
         raise AssertionError(f"{tag}: the ORB run over {orb_run['devices']} launched FAST "
                              f"{orb_fast} times")
     return {"launches": launches, "frames": frames, "fps": fps, "syncs": len(syncs),
-            "fast_launches": orb_fast, "fast_frames": orb_run["streams"] * orb_run["frames"]}
+            "fast_launches": orb_fast, "fast_frames": orb_run["streams"] * orb_run["frames"],
+            "y4m_launches": y4m_launches, "chunks": chunks, "slots": slots}
+
+
+def phase_y4m_kernel(dev, rng, card: str, served: dict) -> dict:
+    """Phase 15: the Y4M encode kernel on one served chunk of config 5
+    (Y4M_FRAMES random 1080x1920 frames), C420 and C444, against its plain
+    version on the card and, for the first Y4M_NUMPY_FRAMES, against the
+    numpy encode on the host: exact; its device time (CUDA graph) and back
+    to back time per chunk against the byte bound, the plain version's
+    time; the launches per served chunk that phases 10 and 13 counted
+    (``served``, phase 10's record)."""
+    from video_stabilization_tpu_torch.ops import y4m
+
+    h, w = SERVE_SIZE
+    frames = torch.from_numpy(rng.integers(0, 256, (Y4M_FRAMES, h, w, 3), dtype=np.uint8)
+                              ).to(dev)
+    out = {}
+    for c420 in (True, False):
+        name = "c420" if c420 else "c444"
+        before = y4m.launches
+        got = y4m.encode_y4m(frames, c420)
+        one_launch = y4m.launches - before
+        plain_equal = bool(torch.equal(got, y4m.encode_y4m_plain(frames, c420)))
+        want = encoded(list(frames[:Y4M_NUMPY_FRAMES].cpu().numpy()), c420)
+        numpy_equal = sum(bytes(g) == w_ for g, w_ in
+                          zip(got[:Y4M_NUMPY_FRAMES].cpu().numpy(), want))
+        del got
+        dev_ms = device_ms(lambda: y4m.encode_y4m(frames, c420), n=10)
+        ms = time_ms(lambda: y4m.encode_y4m(frames, c420))
+        plain_ms = time_ms(lambda: y4m.encode_y4m_plain(frames, c420), reps=5, inner=2)
+        px = Y4M_FRAMES * h * w
+        bound = bound_ms(Y4M_BYTES[c420] * px, Y4M_OPS[c420] * px)
+        print(f"y4m encode {name}: {Y4M_FRAMES} frames of {w}x{h} in {one_launch} launch; "
+              f"equal to the plain version on the card: {plain_equal}; to the numpy encode: "
+              f"{numpy_equal} of {Y4M_NUMPY_FRAMES} frames; per chunk {dev_ms:.4f} ms device "
+              f"(CUDA graph), {ms:.4f} ms back to back, plain {plain_ms:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, {Y4M_BYTES[c420]} B/px): "
+              f"{100 * bound['bound_ms'] / dev_ms:.1f} % of it; {card}", flush=True)
+        if one_launch != 1 or not plain_equal or numpy_equal != Y4M_NUMPY_FRAMES:
+            raise AssertionError(f"y4m encode {name}: {one_launch} launches, plain equal "
+                                 f"{plain_equal}, numpy equal {numpy_equal}")
+        out[name] = {"device_ms": dev_ms / Y4M_FRAMES, "ms": ms / Y4M_FRAMES,
+                     "plain_ms": plain_ms / Y4M_FRAMES, "bound_ms": bound["bound_ms"] / Y4M_FRAMES,
+                     "bound_by": bound["bound_by"], "max_abs_err": 0.0}
+    sharded = served["sharded"]
+    print(f"y4m encode launches per served chunk: {served['y4m_launches'] / served['chunks']:.2f}"
+          f" on one card (phase 10, {served['device_encoded']} frames encoded on the card), "
+          f"{sharded['y4m_launches'] / sharded['chunks']:.2f} over {sharded['slots']} slots "
+          "(phase 13)", flush=True)
+    return out
 
 
 def phase_app(seed: int, dev, card: str) -> dict:
@@ -2743,7 +2827,7 @@ def main() -> int:
     from video_stabilization_tpu_torch.config import (
         ECCConfig, StabilizationMode, StabilizerConfig)
     from video_stabilization_tpu_torch.ops import affine_warp as aw
-    from video_stabilization_tpu_torch.ops import fast
+    from video_stabilization_tpu_torch.ops import fast, y4m
     from video_stabilization_tpu_torch.utils import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2754,10 +2838,11 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    names = ("affine_warp", "fast_score")
+    names = ("affine_warp", "fast_score", "y4m_encode")
     cuda_build.build_kernels(names)
     aw._kernel_lib()
     fast._kernel_lib()
+    y4m._kernel_lib()
     print(f"build: {len(names)} kernels in {time.perf_counter() - t0:.2f} s ("
           + ", ".join(f"{n} nvcc {cuda_build.build_seconds[n]:.2f} s" for n in names)
           + ")", flush=True)
@@ -2822,6 +2907,7 @@ def main() -> int:
     mixed = phase_mixed(cfg5, args.seed, dev, card, streams)
     mixed_mesh = phase_mixed_mesh(cfg5, args.seed, mesh, cards)
     served = phase_serve(args.seed, dev, card, mesh, cards)
+    y4m_times = phase_y4m_kernel(dev, rng, card, served)
     apps = phase_app(args.seed, dev, card)
     app_flags = phase_app_flags(args.seed, dev, card)
 
@@ -2930,6 +3016,17 @@ def main() -> int:
         "max_abs_err": max(fk["max_abs_err"], last_err),
         "library_ms": None,
         "paths": fast_paths,
+    }, {
+        "name": "y4m_encode",
+        "route": "cuda",
+        "source": "video_stabilization_tpu_torch/csrc/y4m_encode.cu",
+        "replaces": None,       # the JAX package encodes its outputs on the host
+        **counted(served["y4m_launches"], served), **y4m_times["c420"],
+        "library_ms": None,
+        "paths": {"serve": {**counted(served["y4m_launches"], served), **y4m_times["c420"]},
+                  "serve_sharded": {**counted(served["sharded"]["y4m_launches"],
+                                              served["sharded"]), **y4m_times["c420"]},
+                  "c444": y4m_times["c444"]},
     }]}
     print(nvidia_smi_line(), flush=True)
     print(json.dumps(record), flush=True)

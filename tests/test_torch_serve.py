@@ -129,10 +129,11 @@ SERVE_STAGES = ("y4m_read", "serve_enqueue", "slot0", "serve_wait", "y4m_encode"
 def test_serve_files_stage_ranges_and_counters(clips, tmp_path, monkeypatch):
     """Under the profiler, ``serve_files`` opens ``y4m_read`` once per
     ``read_yuv_block`` call, ``serve_enqueue`` (and the mesh's ``slot0``)
-    once per chunk, ``serve_wait`` once per drain, and ``y4m_encode`` and
-    ``y4m_write`` once per written frame, only while
-    ``stage_profile.enabled`` is set; ``last_run`` counts each writer's
-    frames and splits its write seconds into encode and pipe write."""
+    once per chunk, ``y4m_encode`` once per slot and chunk in the enqueue,
+    ``serve_wait`` once per drain, and ``y4m_write`` once per written frame,
+    only while ``stage_profile.enabled`` is set; ``last_run`` counts the
+    frames encoded on the slot's device and each writer's frames, and its
+    write seconds are the pipe writes' alone (no host encode)."""
     from video_stabilization_tpu_torch.utils import stage_profile
 
     reads = []
@@ -162,16 +163,18 @@ def test_serve_files_stage_ranges_and_counters(clips, tmp_path, monkeypatch):
     assert len(reads) == N_STREAMS * (chunks + 1)
     assert done == N_FRAMES and run["chunks"] == chunks
     assert seen[True] == {"y4m_read": len(reads), "serve_enqueue": chunks, "slot0": chunks,
-                          "serve_wait": chunks, "y4m_encode": N_STREAMS * N_FRAMES,
+                          "serve_wait": chunks, "y4m_encode": chunks,
                           "y4m_write": N_STREAMS * N_FRAMES}
     assert run["written"] == [N_FRAMES] * N_STREAMS         # every output is valid
-    assert 0 < run["encode_s"] and 0 < run["pipe_write_s"]
+    assert run["device_encoded"] == N_STREAMS * N_FRAMES
+    assert run["encode_s"] == 0.0 and 0 < run["pipe_write_s"]
     assert run["encode_s"] + run["pipe_write_s"] <= run["write_s"]
 
 
 def test_serve_files_logs_the_run_split(clips, tmp_path):
     """The closing log line gives the host seconds of read, enqueue, wait,
-    encode and pipe write, and the frames written per stream."""
+    encode and pipe write, the frames encoded on the device and the frames
+    written per stream."""
     lines = []
     serve.serve_files(clips, str(tmp_path), "smoothing", chunk=CHUNK,
                       config=config_from_fields(tiny_config()), devices=["cpu"],
@@ -180,6 +183,7 @@ def test_serve_files_logs_the_run_split(clips, tmp_path):
     for part, key in (("read", "read_s"), ("enqueue", "queue_s"), ("wait", "wait_s"),
                       ("encode", "encode_s"), ("pipe write", "pipe_write_s")):
         assert f" {part} {run[key]:.2f}" in lines[-1], part
+    assert f"frames encoded on the device {N_STREAMS * N_FRAMES};" in lines[-1]
     assert lines[-1].endswith(f"frames written per stream {[N_FRAMES] * N_STREAMS}")
 
 

@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from video_stabilization_tpu_torch.ops.y4m import frame_bytes
 from video_stabilization_tpu_torch.utils.stage_profile import stage
 
 try:
@@ -197,10 +198,12 @@ def encode_y4m_planes(frame_bgr: np.ndarray, c420: bool) -> bytes:
 
 class VideoWriter:
     """Frame sink: ``.y4m`` without any library (C444, or C420 with
-    ``subsampling="420"``), mp4 / avi via cv2.  It counts the ``frames`` it
-    wrote and, for Y4M, the host seconds of their encode (``encode_s``) and
-    of their file writes (``file_write_s``), each also a stage range
-    (``y4m_encode``, ``y4m_write``); cv2's encode and write are not timed."""
+    ``subsampling="420"``), mp4 / avi via cv2.  :meth:`write` takes a BGR
+    frame; :meth:`write_planes` a Y4M frame already encoded (Y4M only).  It
+    counts the ``frames`` it wrote and, for Y4M, the host seconds of their
+    encode (``encode_s``) and of their file writes (``file_write_s``), each
+    also a stage range (``y4m_encode``, ``y4m_write``); cv2's encode and
+    write are not timed."""
 
     def __init__(self, path: str, fps: float, frame_size: Tuple[int, int],
                  subsampling: str = "444"):
@@ -239,6 +242,21 @@ class VideoWriter:
             self._f.write(data)
         self.encode_s += t1 - t0
         self.file_write_s += time.perf_counter() - t1
+
+    def write_planes(self, planes: np.ndarray) -> None:
+        """Append one frame given as its Y|U|V planes, the bytes of
+        :func:`encode_y4m_planes` (a contiguous uint8 array), with no copy."""
+        if not self._y4m:
+            raise ValueError("write_planes needs a .y4m output")
+        expected = frame_bytes(self.h, self.w, self._c420)
+        if planes.nbytes != expected:
+            raise ValueError(f"write_planes: {planes.nbytes} bytes, a frame has {expected}")
+        self.frames += 1
+        t0 = time.perf_counter()
+        with stage("y4m_write"):
+            self._f.write(b"FRAME\n")
+            self._f.write(planes)
+        self.file_write_s += time.perf_counter() - t0
 
     def close(self) -> None:
         if self._y4m:

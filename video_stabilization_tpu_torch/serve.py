@@ -13,9 +13,11 @@ streams per slot.  Data path per chunk of K frames of every stream:
     -> YUV -> BGR on that card (``ops/image.py::yuv_flat_to_bgr``)
     -> the stream-sharded offline chunk (``parallel/streams.py``): each
        slot's streams through the stream-batched chunk on its card
-    -> per slot, asynchronous D2H copies of its outputs into pinned host
+    -> per slot, the Y4M encode of its outputs on that card
+       (``ops/y4m.py``, one launch: the Y|U|V planes, 1.5 B/px for C420)
+    -> per slot, asynchronous D2H copies of the planes into pinned host
        memory, then an event on its card's stream
-    -> per-stream Y4M writers, one chunk behind.
+    -> per-stream Y4M writers, one chunk behind, which only write bytes.
 
 Nothing is copied between cards.  Two sets of pinned buffers alternate
 between chunks; a slot's parts of them are slices of one pinned allocation
@@ -34,7 +36,8 @@ Run it (on every card; ``device="cpu"`` from Python for the CPU):
 
 The in-memory entry point :func:`stabilize_streams_sharded` runs the same
 pipeline on decoded footage; ``serve_files``' outputs equal it on the same
-mesh bit for bit (the writers only encode what came out).
+mesh bit for bit (the planes are ``io/video.py::encode_y4m_planes``' bytes
+of what came out).
 """
 
 from __future__ import annotations
@@ -55,15 +58,18 @@ import torch
 from video_stabilization_tpu_torch.utils.stage_profile import stage
 
 # the last serve_files run's counts, its mesh and its wall time split
-# (seconds): fread, queueing (H2D, decode, the chunk, the D2H copies), the
-# drain's event waits and its writes (``write_s``: ``_drain`` whole), and
-# within the writes the writers' own Y4M encode and file or pipe write, over
-# all writers (``encode_s``, ``pipe_write_s``); the frames each writer wrote
-# (``written``); per slot, device ms of its H2D copies, its decode and chunk,
-# and its D2H copies (CUDA events, on the card only; slots that share a card
-# share its stream, so their spans overlap).  The loop's parts also open
-# stage ranges: ``serve_enqueue`` per chunk, ``serve_wait`` per drain, and
-# the readers' and writers' ``y4m_read``, ``y4m_encode`` and ``y4m_write``.
+# (seconds): fread, queueing (H2D, decode, the chunk, the encode, the D2H
+# copies), the drain's event waits and its writes (``write_s``: ``_drain``
+# whole), and within the writes the writers' own host encode (0: the planes
+# come encoded) and file or pipe write, over all writers (``encode_s``,
+# ``pipe_write_s``); the frames encoded on the slots' devices in the enqueue
+# (``device_encoded``) and the frames each writer wrote (``written``); per
+# slot, device ms of its H2D copies, its decode, chunk and encode, and its
+# D2H copies (CUDA events, on the card only; slots that share a card share
+# its stream, so their spans overlap).  The loop's parts also open stage
+# ranges: ``serve_enqueue`` per chunk, within it ``y4m_encode`` per slot,
+# ``serve_wait`` per drain, and the readers' ``y4m_read`` and the writers'
+# ``y4m_write``.
 last_run: dict = {}
 # ``torch.cuda.set_sync_debug_mode`` of the chunk loop on the card (after
 # the set-up): "warn" lists every synchronizing call the loop makes; the
@@ -148,17 +154,18 @@ def _loop_sync_debug(cuda: bool):
 
 class _Buffers:
     """One set of host buffers of a chunk, for all S streams: the planar
-    YUV it reads into and the outputs and validity it drains from (pinned
-    on the card; slot d's part is the slice of its streams), and each
-    slot's events of the chunk."""
+    YUV it reads into, and the outputs' Y4M planes (in the inputs' chroma
+    layout, so of the same size) and validity it drains from (pinned on the
+    card; slot d's part is the slice of its streams), and each slot's
+    events of the chunk."""
 
-    def __init__(self, s: int, chunk: int, nbytes: int, h: int, w: int, cuda: bool):
+    def __init__(self, s: int, chunk: int, nbytes: int, cuda: bool):
         def host(shape, dtype):
             t = torch.empty(shape, dtype=dtype)
             return t.pin_memory() if cuda else t
 
         self.yuv = host((s, chunk, nbytes), torch.uint8)
-        self.out = host((s, chunk, h, w, 3), torch.uint8)
+        self.out = host((s, chunk, nbytes), torch.uint8)
         self.valid = host((s, chunk), torch.bool)
         self.events = None          # per slot: {name: event on its card's stream}
 
@@ -184,6 +191,7 @@ def serve_files(paths: Sequence[str], output_dir: Optional[str], mode,
     from video_stabilization_tpu_torch.io.native import NativeY4MReader
     from video_stabilization_tpu_torch.io.video import VideoWriter
     from video_stabilization_tpu_torch.ops.image import yuv_flat_to_bgr
+    from video_stabilization_tpu_torch.ops.y4m import encode_y4m
     from video_stabilization_tpu_torch.parallel import (
         Sharded, init_sharded_carry, make_sharded_offline_fn, make_stream_mesh)
     from video_stabilization_tpu_torch.utils import prng
@@ -227,10 +235,11 @@ def serve_files(paths: Sequence[str], output_dir: Optional[str], mode,
                                r.fps, (h, w), subsampling="420" if c420 else "444")
                    for p, r in zip(paths, readers)]
 
-    buffers = [_Buffers(s, chunk, readers[0].yuv_bytes, h, w, cuda) for _ in range(2)]
+    nbytes = readers[0].yuv_bytes
+    buffers = [_Buffers(s, chunk, nbytes, cuda) for _ in range(2)]
     split = dict(read_s=0.0, queue_s=0.0, wait_s=0.0, write_s=0.0,
                  h2d_ms=[0.0] * n_slots, compute_ms=[0.0] * n_slots, d2h_ms=[0.0] * n_slots)
-    waits = 0
+    waits = encoded = 0
 
     def streams_of(d: int) -> slice:
         return slice(d * per, (d + 1) * per)
@@ -277,9 +286,13 @@ def serve_files(paths: Sequence[str], output_dir: Optional[str], mode,
                 carry, (out, valid) = offline(carry, Sharded(tuple(frames)))
                 outs = out.parts if n_slots > 1 else (out,)
                 valids = valid.parts if n_slots > 1 else (valid,)
-                for d, dev in enumerate(mesh):
+                for d, dev in enumerate(mesh):     # each slot's outputs encoded on its card
+                    with stage("y4m_encode"):
+                        planes = encode_y4m(outs[d].reshape(per * chunk, h, w, 3), c420)
+                    encoded += per * chunk
                     buf.record(d, "computed", dev)
-                    buf.out[streams_of(d)].copy_(outs[d], non_blocking=True)
+                    buf.out[streams_of(d)].copy_(planes.view(per, chunk, nbytes),
+                                                 non_blocking=True)
                     buf.valid[streams_of(d)].copy_(valids[d], non_blocking=True)
                     buf.record(d, "copied", dev)
             split["queue_s"] += time.perf_counter() - t0
@@ -303,22 +316,24 @@ def serve_files(paths: Sequence[str], output_dir: Optional[str], mode,
     last_run.clear()
     last_run.update(streams=s, frames=done, chunks=i, chunk=chunk, wall_s=dt,
                     devices=[str(d) for d in mesh], event_waits=waits, **split,
-                    encode_s=encode_s, pipe_write_s=pipe_write_s, written=written)
+                    encode_s=encode_s, pipe_write_s=pipe_write_s, device_encoded=encoded,
+                    written=written)
     # an operator's view of the run's split, with no profiler
     log(f"served {done} frames x {s} streams in {dt:.2f}s ({done * s / dt:.1f} aggregate "
         f"fps); host s: read {split['read_s']:.2f}, enqueue {split['queue_s']:.2f}, wait "
         f"{split['wait_s']:.2f}, encode {encode_s:.2f}, pipe write {pipe_write_s:.2f}; "
-        f"frames written per stream {written}" if done else "no full chunks")
+        f"frames encoded on the device {encoded}; frames written per stream {written}"
+        if done else "no full chunks")
     return done, dt
 
 
-def _drain(writers, outputs: np.ndarray, valid: np.ndarray) -> None:
-    """Append one chunk's valid frames, (S, K, H, W, 3) and (S, K) on the
-    host, to each stream's writer."""
+def _drain(writers, planes: np.ndarray, valid: np.ndarray) -> None:
+    """Append one chunk's valid frames, their Y4M planes (S, K, bytes) and
+    validity (S, K) on the host, to each stream's writer."""
     for si, wr in enumerate(writers):
-        for ki in range(outputs.shape[1]):
+        for ki in range(planes.shape[1]):
             if valid[si, ki]:
-                wr.write(outputs[si, ki])
+                wr.write_planes(planes[si, ki])
 
 
 def _render_sim_streams(n_streams, n_frames, h, w, out_dir, device="cuda", log=print):
