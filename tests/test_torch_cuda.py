@@ -679,3 +679,47 @@ def test_sharded_chunk_matches_each_slot(dev, cards):
     for d in range(len(mesh)):
         for name in ("last_h", "transforms", "accum_h", "corners_prev", "frames"):
             assert torch.equal(getattr(carry.parts[d], name), getattr(alone[d], name)), name
+
+
+def test_chunk_and_step_ignore_the_callers_tf32(dev):
+    """A caller that turned TF32 on (``torch.set_float32_matmul_precision
+    ("high")``) gets from the sharded chunk (serving's chunk) and the
+    batched step what it gets with TF32 off, outputs and carry bit for bit,
+    and its setting back after every call."""
+    from video_stabilization_tpu_torch.config import StabilizationMode, StabilizerConfig
+    from video_stabilization_tpu_torch.parallel import (
+        init_batched_carry, make_batched_step_fn, make_sharded_offline_fn, make_stream_mesh)
+    from video_stabilization_tpu_torch.utils import prng
+
+    m = StabilizationMode.GLOBAL_SMOOTHING
+    cfg = StabilizerConfig(past_frames=4, future_frames=2, working_height=120,
+                           frame_height=240, frame_width=320, static_mode=int(m))
+    clips = torch.stack([small_clip(dev, 6, seed=s) for s in range(2)])   # (S, T, H, W, C)
+
+    def run(precision):
+        torch.set_float32_matmul_precision(precision)
+        chunk = make_sharded_offline_fn(cfg, make_stream_mesh([dev]))
+        step = make_batched_step_fn(cfg)
+        a = init_batched_carry(cfg, 2, int(m), prng.key(3), dev)
+        b = init_batched_carry(cfg, 2, int(m), prng.key(3), dev)
+        outs = []
+        for i in (0, 3):
+            a, (out, _) = chunk(a, clips[:, i:i + 3])
+            outs.append(out)
+            assert torch.get_float32_matmul_precision() == precision
+        for t in range(6):
+            b, (out, _) = step(b, clips[:, t])
+            outs.append(out)
+            assert torch.get_float32_matmul_precision() == precision
+        return a, b, outs
+
+    try:
+        want = run("highest")
+        got = run("high")
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    for g, w in zip(got[2], want[2]):
+        assert torch.equal(g, w)
+    for name in ("last_h", "transforms", "corners_prev"):
+        for g, w in zip(got[:2], want[:2]):
+            assert torch.equal(getattr(g, name), getattr(w, name)), name

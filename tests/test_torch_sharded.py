@@ -217,3 +217,97 @@ def test_slot_ranges_over_two_slots(frames, form):
     per_call = 2 if form == "step_mixed_modes" else 1
     assert seen[False] == {}
     assert seen[True] == {"slot0": per_call * len(calls), "slot1": per_call * len(calls)}
+
+
+class _Clock:
+    """A ``time`` stand-in whose ``perf_counter`` moves by one a read."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def perf_counter(self):
+        self.t += 1.0
+        return self.t
+
+
+@pytest.mark.parametrize("n_slots", [4, 1])
+def test_mesh_counters(frames, monkeypatch, n_slots):
+    """``parallel.streams.mesh_counters`` over ``["cpu"] * n_slots``: each
+    call adds one to ``calls``, its wall to ``dispatch_s`` (at least the
+    sum of its slots' enqueues) and one enqueue to each slot's entry (two
+    clock reads a slot, two a call); a reset clears them; each slot's
+    outputs of a counted call equal its streams through the one-device
+    chunk, which no counter sees."""
+    from video_stabilization_tpu_torch.engine import make_offline_batched_fn, map_carry
+    from video_stabilization_tpu_torch.parallel import Sharded, streams
+
+    cfg = config_from_fields(tiny_config())
+    mesh = make_stream_mesh(["cpu"] * n_slots)
+    per = SHARDED_STREAMS // n_slots
+    fn = make_sharded_offline_fn(cfg, mesh)
+    chunk = make_offline_batched_fn(cfg)
+    carry = shard_carry(port_carry(tiny_config(), SHARDED_STREAMS, 0, 5), mesh)
+    alone = [map_carry(torch.clone, c)
+             for c in (carry.parts if isinstance(carry, Sharded) else (carry,))]
+
+    def call(i):
+        nonlocal carry
+        clip = torch.from_numpy(np.swapaxes(frames[i * K:(i + 1) * K], 0, 1))
+        carry, (out, valid) = fn(carry, clip)
+        outs, valids = (out.parts, valid.parts) if n_slots > 1 else ((out,), (valid,))
+        for d in range(n_slots):
+            alone[d], (want, ok) = chunk(alone[d], clip[d * per:(d + 1) * per])
+            assert torch.equal(outs[d], want) and torch.equal(valids[d], ok), f"slot {d}"
+
+    streams.reset_mesh_counters()
+    call(0)
+    got = streams.mesh_counters
+    assert got["calls"] == 1 and len(got["enqueue_s"]) == n_slots
+    assert min(got["enqueue_s"]) > 0
+    assert got["dispatch_s"] >= sum(got["enqueue_s"]) >= max(got["enqueue_s"])
+    streams.reset_mesh_counters()
+    assert streams.mesh_counters == {"calls": 0, "dispatch_s": 0.0, "enqueue_s": []}
+    monkeypatch.setattr(streams, "time", _Clock())
+    call(1)
+    assert streams.mesh_counters == {"calls": 1, "dispatch_s": 2.0 * n_slots + 1,
+                                     "enqueue_s": [1.0] * n_slots}
+
+
+@pytest.mark.parametrize("form", ["sharded offline", "batched step"])
+def test_entry_points_compute_in_float32(frames, monkeypatch, form):
+    """With TF32 turned on by the caller, either way torch offers, dense
+    LK's box sums run with cuBLAS in float32 ("ieee") inside a call, and
+    the caller's setting reads as it was after it."""
+    from video_stabilization_tpu_torch.ops import lk_dense
+    from video_stabilization_tpu_torch.parallel import make_batched_step_fn
+
+    seen = []
+    box_same = lk_dense._box_same
+
+    def spy(*args, **kwargs):
+        seen.append(torch.backends.cuda.matmul.fp32_precision)
+        return box_same(*args, **kwargs)
+
+    monkeypatch.setattr(lk_dense, "_box_same", spy)
+    cfg = config_from_fields(tiny_config())
+    clip = torch.from_numpy(np.swapaxes(frames[:K, :2], 0, 1))     # (2, K, H, W, 3)
+    matmul = torch.backends.cuda.matmul
+    before = matmul.fp32_precision
+    try:
+        for turn_on, reads in [(lambda: setattr(matmul, "allow_tf32", True),
+                                lambda: matmul.allow_tf32),
+                               (lambda: setattr(matmul, "fp32_precision", "tf32"),
+                                lambda: matmul.fp32_precision)]:
+            turn_on()
+            want = reads()
+            carry = port_carry(tiny_config(), 2, 0, 6)
+            if form == "sharded offline":
+                mesh = make_stream_mesh(["cpu"] * 2)
+                make_sharded_offline_fn(cfg, mesh)(shard_carry(carry, mesh), clip)
+            else:
+                make_batched_step_fn(cfg)(carry, clip[:, 0])
+            assert reads() == want
+            assert seen and set(seen) == {"ieee"}
+            seen.clear()
+    finally:
+        matmul.fp32_precision = before

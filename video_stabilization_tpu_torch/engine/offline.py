@@ -83,6 +83,7 @@ from video_stabilization_tpu_torch.ops.image import bgr_to_gray, resize_bilinear
 from video_stabilization_tpu_torch.ops.lk import lk_track
 from video_stabilization_tpu_torch.ops.pyramid import build_pyramid
 from video_stabilization_tpu_torch.ops.warp import _inv3x3
+from video_stabilization_tpu_torch.utils.precision import in_float32
 from video_stabilization_tpu_torch.utils.stage_profile import stage
 
 # Modes whose output correction is bounded by construction, so the warp's
@@ -376,8 +377,9 @@ def _offline_config(config: StabilizerConfig) -> StabilizerConfig:
 @functools.lru_cache(maxsize=32)
 def make_offline_fn(config: StabilizerConfig) -> Callable:
     """(carry, frames (K, Hf, Wf, C)) -> (carry, (outputs, valid)) for any
-    K up to the window; one callable per config."""
-    return functools.partial(offline_chunk_step, config=_offline_config(config))
+    K up to the window, in float32 whatever the caller set for TF32; one
+    callable per config."""
+    return in_float32(functools.partial(offline_chunk_step, config=_offline_config(config)))
 
 
 @functools.lru_cache(maxsize=32)
@@ -387,12 +389,13 @@ def make_offline_batched_fn(config: StabilizerConfig) -> Callable:
     function's warp arguments (``offline.py::make_offline_batched_fn``): LK
     and ECC without the projective fallback, and the output warp without it
     in every mode (the bounded modes never take it, the others drop it
-    here).  Requires ``config.static_mode``."""
+    here).  Requires ``config.static_mode``.  Float32 whatever the caller
+    set for TF32 (``utils/precision.py``)."""
     require_static_mode(config, "make_offline_batched_fn")
     cfg = _offline_config(config)
     if int(cfg.static_mode) not in BOUNDED_MODES:
         cfg = dataclasses.replace(cfg, warp_projective_fallback=False)
-    return functools.partial(offline_batched_chunk_step, config=cfg)
+    return in_float32(functools.partial(offline_batched_chunk_step, config=cfg))
 
 
 def stabilize_clip_offline(

@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import Callable, List, Sequence
 
 import torch
@@ -60,9 +61,27 @@ from video_stabilization_tpu_torch.engine.offline import (
 )
 from video_stabilization_tpu_torch.engine.state import EngineCarry, Sharded, init_carry, map_carry
 from video_stabilization_tpu_torch.utils import prng
+from video_stabilization_tpu_torch.utils.precision import in_float32
 from video_stabilization_tpu_torch.utils.stage_profile import stage
 
 STREAM_AXIS = "streams"
+
+# what the sharded forms' calls (``_over_mesh``, any mesh) cost the host since
+# the last :func:`reset_mesh_counters`, host clock only and no sync: the
+# calls, each call's wall from its start to its return summed
+# (``dispatch_s``), and per slot the time from the call into the slot's
+# batched form until it returns, summed (``enqueue_s``, one entry per slot
+# of the largest mesh counted); with one host thread the dispatch is about
+# the sum of its slots' enqueues
+mesh_counters: dict = {}
+
+
+def reset_mesh_counters() -> None:
+    mesh_counters.clear()
+    mesh_counters.update(calls=0, dispatch_s=0.0, enqueue_s=[])
+
+
+reset_mesh_counters()
 
 
 def init_batched_carry(config: StabilizerConfig, n_streams: int, mode: int,
@@ -105,9 +124,10 @@ def make_batched_step_fn(config: StabilizerConfig) -> Callable:
     host-GFTT lanes are the streaming step's).  Without
     ``config.static_mode`` each stream runs its own ``carry.mode``, read
     once per call, or given as ``modes`` (host ints, one per stream) by a
-    caller that has read it."""
+    caller that has read it.  Float32 whatever the caller set for TF32."""
     cfg = _batched_config(config)
 
+    @in_float32
     def step(carry: EngineCarry, frames: torch.Tensor, modes=None):
         if cfg.static_mode is None and modes is None:
             modes = carry.mode.tolist()     # the call's one host read
@@ -230,27 +250,44 @@ def _over_mesh(fn: Callable, mesh: Sequence[torch.device],
     enqueued before the next call reads anything back.  With ``read_modes``
     each slot's ``carry.mode`` is read first, every slot's before any slot
     is enqueued, and given to ``fn`` as ``modes``.  Slot d's read and its
-    enqueue each open a ``slot<d>`` stage range."""
+    enqueue each open a ``slot<d>`` stage range.  Each call adds to
+    :data:`mesh_counters`."""
     mesh = tuple(make_stream_mesh(mesh))
 
     def run(carry, frames):
+        t_call = time.perf_counter()
         slots = _slots(carry, mesh)
         modes = [None] * len(mesh)
         if read_modes:
             for d, c in enumerate(slots):
                 with stage(f"slot{d}"):
                     modes[d] = c.mode.tolist()
-        results = []
+        results, enqueue_s = [], []
         for d, (c, f) in enumerate(zip(slots, split_streams(frames, mesh))):
             with stage(f"slot{d}"):
+                t = time.perf_counter()
                 results.append(fn(c, f, modes=modes[d]))
+                enqueue_s.append(time.perf_counter() - t)
         if len(mesh) == 1:
-            return results[0]
-        carries, outs = zip(*results)
-        outputs, valid = zip(*outs)
-        return Sharded(carries), (Sharded(outputs), Sharded(valid))
+            result = results[0]
+        else:
+            carries, outs = zip(*results)
+            outputs, valid = zip(*outs)
+            result = Sharded(carries), (Sharded(outputs), Sharded(valid))
+        _count(enqueue_s, time.perf_counter() - t_call)
+        return result
 
     return run
+
+
+def _count(enqueue_s: list, dispatch_s: float) -> None:
+    """Add one call of ``_over_mesh`` to :data:`mesh_counters`."""
+    slots = mesh_counters["enqueue_s"]
+    slots.extend([0.0] * (len(enqueue_s) - len(slots)))
+    for d, s in enumerate(enqueue_s):
+        slots[d] += s
+    mesh_counters["calls"] += 1
+    mesh_counters["dispatch_s"] += dispatch_s
 
 
 def make_sharded_step_fn(config: StabilizerConfig, mesh: Sequence[torch.device]) -> Callable:
