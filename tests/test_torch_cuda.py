@@ -723,3 +723,94 @@ def test_chunk_and_step_ignore_the_callers_tf32(dev):
     for name in ("last_h", "transforms", "corners_prev"):
         for g, w in zip(got[:2], want[:2]):
             assert torch.equal(getattr(g, name), getattr(w, name)), name
+
+
+def replay_config(**kw):
+    from video_stabilization_tpu_torch.config import GFTTConfig, StabilizerConfig
+
+    return StabilizerConfig(past_frames=30, future_frames=15, working_height=120,
+                            frame_height=240, frame_width=320,
+                            gftt=GFTTConfig(max_features=256), **kw)
+
+
+def carries_equal(a, b):
+    from video_stabilization_tpu_torch.engine import map_carry
+
+    names = []
+    map_carry(lambda x, y: names.append(torch.equal(x, y)), a, b)
+    return all(names)
+
+
+@pytest.mark.parametrize("scenario", ["steady", "switch and resume"])
+def test_step_replay_equals_eager(dev, scenario, tmp_path):
+    """Over 130 frames, past the window's fill of 46, the Stabilizer that
+    replays its step as a CUDA graph equals an eager one bit for bit, in
+    every output and every carry field; with a switch to the accumulated
+    lock at frame 50 and back at 90, and a resume from a carry saved at
+    frame 100, too.  Each replay counts the warp's 5 launches a frame."""
+    from video_stabilization_tpu_torch.config import StabilizationMode
+    from video_stabilization_tpu_torch.engine import Stabilizer, save_carry
+    from video_stabilization_tpu_torch.engine import stabilizer as stab_mod
+
+    cfg = replay_config()
+    frames = small_clip(dev, 130, seed=5)
+    eager = Stabilizer(cfg, seed=9, device=dev)
+    eager._graphs = None
+    graphed = Stabilizer(cfg, seed=9, device=dev)
+    saved = str(tmp_path / "carry.npz")
+    stab_mod.reset_step_counters()
+    launches = 0
+    for i, f in enumerate(frames):
+        if scenario == "switch and resume":
+            if i in (50, 90):
+                mode = (StabilizationMode.ACCUMULATED_FULL_LOCK if i == 50
+                        else StabilizationMode.GLOBAL_SMOOTHING)
+                eager.set_stabilization_mode(mode)
+                graphed.set_stabilization_mode(mode)
+            if i == 100:
+                save_carry(saved, eager.carry)
+            if i == 110:
+                eager.resume(saved)
+                graphed.resume(saved)
+        want = eager.stabilize_frame(f)
+        before = aw.launches
+        got = graphed.stabilize_frame(f)
+        launches += aw.launches - before
+        assert torch.equal(got, want), f"frame {i}"
+        assert carries_equal(graphed.carry, eager.carry), f"frame {i}"
+    assert launches == 5 * len(frames)
+    eager_calls = 1 if scenario == "steady" else 2
+    assert stab_mod.step_counters["replays"] == len(frames) - eager_calls
+    assert stab_mod.step_counters["captures"] == eager_calls
+
+
+def test_step_replay_clip_counts_and_syncs(dev):
+    """One mode and shape: ``stabilize_clip`` returns distinct fresh
+    outputs, equal to the eager clip's; the counters show 1 capture and a
+    replay of every call but the first; and a replayed frame of a frame
+    already on the card runs under ``set_sync_debug_mode("error")``."""
+    from video_stabilization_tpu_torch.engine import Stabilizer
+    from video_stabilization_tpu_torch.engine import stabilizer as stab_mod
+
+    cfg = replay_config()
+    frames = small_clip(dev, 12, seed=6)
+    eager = Stabilizer(cfg, device=dev)
+    eager._graphs = None
+    graphed = Stabilizer(cfg, device=dev)
+    stab_mod.reset_step_counters()
+    got = graphed.stabilize_clip(frames[:10])
+    assert stab_mod.step_counters == {"calls": 10, "replays": 9, "captures": 1}
+    assert torch.equal(got, eager.stabilize_clip(frames[:10]))
+    outs = [graphed.stabilize_frame(frames[10])]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs.append(graphed.stabilize_frame(frames[11]))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert outs[0].data_ptr() != outs[1].data_ptr()
+    assert not torch.equal(outs[0], outs[1])
+    calls = stab_mod.step_counters["calls"] - 10      # the eager clip's calls
+    assert stab_mod.step_counters["captures"] == 1
+    assert stab_mod.step_counters["replays"] >= calls - 2

@@ -49,7 +49,8 @@ import torch
 from video_stabilization_tpu_torch.config import StabilizationMode, StabilizerConfig
 from video_stabilization_tpu_torch.engine.lock import orb_lock, sift_lock
 from video_stabilization_tpu_torch.engine.smoothing import smoothing_homography
-from video_stabilization_tpu_torch.engine.state import EngineCarry, init_carry
+from video_stabilization_tpu_torch.engine.state import EngineCarry, init_carry, map_carry
+from video_stabilization_tpu_torch.engine.step_graph import GraphCache, StepGraph
 from video_stabilization_tpu_torch.motion.homography import (
     HomographyParams,
     compose_homography,
@@ -211,12 +212,24 @@ def stabilized_outputs(mode, h_smooth, h_lock, pres_frames, frames, is_first, ce
     return h_stab, outputs, outside
 
 
+def step_constants(config: StabilizerConfig, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(center (2,) f32, scale_factor () f32) of ``config`` on ``device``:
+    the working image's centre and the working-to-full scale.  They go up
+    without a blocking copy (a pageable source is staged by the CUDA
+    runtime before the call returns)."""
+    wh, ww = config.working_size
+    return (torch.tensor([ww / 2.0, wh / 2.0]).to(device, non_blocking=True),
+            torch.tensor(config.scale_factor).to(device, non_blocking=True))
+
+
 def stabilize_step(
     carry: EngineCarry,
     frame: torch.Tensor,
     config: StabilizerConfig,
     mode: int,
     ext_motion=None,
+    center: torch.Tensor | None = None,
+    scale_factor: torch.Tensor | None = None,
 ) -> Tuple[EngineCarry, Tuple[torch.Tensor, torch.Tensor]]:
     """Process one (Hf, Wf, C) uint8 BGR frame -> (carry', (output, valid)).
 
@@ -226,7 +239,12 @@ def stabilize_step(
     ``ext_motion``: an optional ``(h (3, 3) f32, valid () bool, n_inliers ()
     int32)`` inter-frame rigid motion computed by a host estimator (the
     cv2exact RANSAC replica, ``motion/cv2_ransac.py``); given, the step
-    skips its own LK and RANSAC stages."""
+    skips its own LK and RANSAC stages.
+
+    ``center`` and ``scale_factor``: the working image's (2,) f32 centre and
+    the () f32 working-to-full scale on the frame's device, as
+    :func:`step_constants` makes them once; without them the step uploads
+    both from the host, which a CUDA graph's capture refuses."""
     if config.static_mode is not None:
         mode = int(config.static_mode)
 
@@ -234,11 +252,8 @@ def stabilize_step(
     f32 = dict(dtype=torch.float32, device=dev)
     w = config.total_window
     future = config.future_frames
-    wh, ww = config.working_size
-    # small constants go up without a blocking copy (a pageable source is
-    # staged by the CUDA runtime before the call returns)
-    center = torch.tensor([ww / 2.0, wh / 2.0]).to(dev, non_blocking=True)
-    scale_factor = torch.tensor(config.scale_factor).to(dev, non_blocking=True)
+    if center is None or scale_factor is None:
+        center, scale_factor = step_constants(config, dev)
     eye = torch.eye(3, **f32)
     k_ransac, k_lock = frame_keys(carry.key, carry.n)
 
@@ -424,6 +439,44 @@ def make_step_ext_fn(config: StabilizerConfig) -> Callable:
     return step_ext
 
 
+REGISTRATION_MODES = (StabilizationMode.ORB_FULL_LOCK, StabilizationMode.SIFT_FULL_LOCK)
+
+# what Stabilizer.stabilize_frame did since the last reset_step_counters():
+# its calls, the calls that replayed a CUDA graph of the step, and the
+# graphs it captured; host counts, read without a sync
+step_counters: dict = {}
+
+
+def reset_step_counters() -> None:
+    step_counters.clear()
+    step_counters.update(calls=0, replays=0, captures=0)
+
+
+reset_step_counters()
+
+
+def step_replays(config: StabilizerConfig, device) -> bool:
+    """Whether ``Stabilizer`` replays the step of ``config`` on ``device``
+    as a CUDA graph (in every mode but the registration locks): on a CUDA
+    card, unless a stage reads the device to the host, which capture
+    refuses: the referee's host estimator (``ransac.method="cv2exact"``),
+    host GFTT and cv2's exact greedy corners (``gftt.selection`` "host" or
+    "cv2exact", or ``reference_compat``)."""
+    return (torch.device(device).type == "cuda" and config.ransac.method != "cv2exact"
+            and corner_config(config).selection not in ("host", "cv2exact"))
+
+
+def _as_tensor(frame) -> torch.Tensor:
+    if isinstance(frame, np.ndarray):
+        return torch.from_numpy(np.require(frame, requirements=("C", "W")))
+    return frame
+
+
+def _copy_carry(dst: EngineCarry, src: EngineCarry) -> None:
+    """Copy each tensor of ``src`` into ``dst``'s, but those they share."""
+    map_carry(lambda d, s: d if s is d else d.copy_(s), dst, src)
+
+
 class Stabilizer:
     """One stream: construct with a config, feed frames one at a time,
     switch modes at runtime (the reference's public API).  It runs on the
@@ -458,6 +511,12 @@ class Stabilizer:
         self.host_reads = 0
         self._mode = int(mode)
         self.carry = init_carry(config, self._mode, prng.key(seed), self.device)
+        # the step's CUDA graphs by (mode, frame shape, frame dtype), the
+        # carry they read and write, and their input frames by shape and dtype
+        self._graphs = GraphCache() if step_replays(config, self.device) else None
+        self._constants = step_constants(config, self.device) if self._graphs is not None else None
+        self._static = None
+        self._inputs: dict = {}
 
     def set_stabilization_mode(self, mode: StabilizationMode) -> None:
         """Switch modes; clears lock state, keeps the frame/transform window."""
@@ -497,16 +556,40 @@ class Stabilizer:
         self._mode = int(self.carry.mode)
 
     def _as_frame(self, frame) -> torch.Tensor:
-        if isinstance(frame, np.ndarray):
-            frame = torch.from_numpy(np.require(frame, requirements=("C", "W")))
-        return frame.to(self.device)
+        return _as_tensor(frame).to(self.device)
 
     def stabilize_frame(self, frame) -> torch.Tensor:
         """Feed one (Hf, Wf, C) uint8 BGR frame (array or tensor); returns the
         stabilized, delayed output frame on the device.  Stage ranges: the
-        frame's upload (``input_h2d``), then the rest (``step``)."""
+        frame's upload (``input_h2d``), then the rest (``step``).
+
+        Where :func:`step_replays` holds, in a mode other than the
+        registration locks, the step is a CUDA graph captured per (mode,
+        frame shape, frame dtype) at the key's second call
+        (``engine/step_graph.py``): the frame is copied into the graph's
+        input, the replay runs under ``step_replay`` and the output is a
+        fresh copy.  :attr:`carry` then stays one object whose tensors each
+        replay overwrites, so a carry read before a call is no snapshot of
+        it after the call (its ``frames`` ring never was); a carry put in
+        its place (a mode switch, :meth:`resume`) is copied in before the
+        next replay.  :data:`step_counters` counts the calls, replays and
+        captures."""
+        step_counters["calls"] += 1
+        src = _as_tensor(frame)
+        pinned = self.config.static_mode
+        mode = self._mode if pinned is None else int(pinned)
+        key = None
+        if self._graphs is not None and mode not in REGISTRATION_MODES:
+            key = (mode, tuple(src.shape), src.dtype)
         with stage("input_h2d"):
-            f = self._as_frame(frame)
+            f = self._static_input(src) if key else src.to(self.device)
+        graph = self._graphs.get(key, lambda: self._capture(key[0], f)) if key else None
+        if graph is not None:
+            with stage("step_replay"):
+                self._adopt_carry()
+                output = graph.replay().clone()
+            step_counters["replays"] += 1
+            return output
         with stage("step"):
             if self._track is None:
                 self.carry, (output, _) = stabilize_step(self.carry, f, self.config,
@@ -517,6 +600,45 @@ class Stabilizer:
             if self.config.gftt.selection == "host":
                 self._inject_host_corners(frame)
             return output
+
+    def _static_input(self, src: torch.Tensor) -> torch.Tensor:
+        """``src`` copied into the graphs' device input of its shape and
+        dtype."""
+        key = (tuple(src.shape), src.dtype)
+        buf = self._inputs.get(key)
+        if buf is None:
+            buf = self._inputs[key] = torch.empty(src.shape, dtype=src.dtype,
+                                                  device=self.device)
+        return buf.copy_(src)
+
+    def _adopt_carry(self) -> EngineCarry:
+        """:attr:`carry` as the graphs' carry, whose tensors stay put: at
+        first a copy of it that shares its frame ring, later the same
+        tensors refilled from whatever carry took its place (an eager step,
+        a mode switch, a resume)."""
+        if self._static is None:
+            ring = self.carry.frames
+            self._static = map_carry(lambda x: x if x is ring else x.clone(), self.carry)
+        elif self.carry is not self._static:
+            _copy_carry(self._static, self.carry)
+        self.carry = self._static
+        return self._static
+
+    def _capture(self, mode: int, f: torch.Tensor) -> StepGraph:
+        """The step in ``mode`` on the graphs' input ``f``, captured: it
+        reads the graphs' carry and writes its next carry back into it."""
+        carry = self._adopt_carry()
+        cfg = self.config
+        center, scale_factor = self._constants
+
+        def step():
+            new, (output, _) = stabilize_step(carry, f, cfg, mode, center=center,
+                                              scale_factor=scale_factor)
+            _copy_carry(carry, new)
+            return output
+
+        step_counters["captures"] += 1
+        return StepGraph(step, self.device)
 
     def _host_motion(self, f: torch.Tensor):
         """The host estimator stage: the track prefix on the device, one read

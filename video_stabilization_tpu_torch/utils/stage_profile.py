@@ -197,12 +197,12 @@ def feeder(cfg, mode, seed: int, chunk: int, dev, streams: int = 0):
     import dataclasses
 
     from video_stabilization_tpu_torch.engine import (
-        Stabilizer, init_carry, make_offline_batched_fn, make_offline_fn)
+        init_carry, make_offline_batched_fn, make_offline_fn, make_step_fn)
     from video_stabilization_tpu_torch.parallel import init_batched_carry, make_batched_step_fn
     from video_stabilization_tpu_torch.utils import prng
 
+    cfg = dataclasses.replace(cfg, static_mode=int(mode))
     if streams:
-        cfg = dataclasses.replace(cfg, static_mode=int(mode))
         state = {"carry": init_batched_carry(cfg, streams, int(mode), prng.key(seed), dev)}
         fn = make_offline_batched_fn(cfg) if chunk else make_batched_step_fn(cfg)
 
@@ -212,16 +212,16 @@ def feeder(cfg, mode, seed: int, chunk: int, dev, streams: int = 0):
             for part in parts:
                 state["carry"], _ = fn(state["carry"], part)
         return feed_streams
-    if not chunk:
-        stab = Stabilizer(cfg, mode, seed=seed, device=dev)
-        return lambda frames: [stab.stabilize_frame(f) for f in frames]
-    cfg = dataclasses.replace(cfg, static_mode=int(mode))
-    step = make_offline_fn(cfg)
+    # one stream: the offline chunk, or the streaming step run eagerly, as
+    # Stabilizer runs a key's first call (its CUDA graph's replay would show
+    # no stage)
+    step = make_offline_fn(cfg) if chunk else make_step_fn(cfg)
     state = {"carry": init_carry(cfg, int(mode), prng.key(seed), dev)}
 
     def feed(frames):
-        for i in range(0, len(frames), chunk):
-            state["carry"], _ = step(state["carry"], frames[i:i + chunk])
+        parts = [frames[i:i + chunk] for i in range(0, len(frames), chunk)] if chunk else frames
+        for part in parts:
+            state["carry"], _ = step(state["carry"], part)
     return feed
 
 
