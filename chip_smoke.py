@@ -1159,7 +1159,7 @@ def batch_rounding(cfg, frames: torch.Tensor, keys: torch.Tensor, dev) -> str:
     line to print."""
     import dataclasses
 
-    from video_stabilization_tpu_torch.engine.stabilizer import _fit_inter_frame, frame_keys
+    from video_stabilization_tpu_torch.engine.offline import _fit_inter_frame, frame_keys
     from video_stabilization_tpu_torch.motion.similarity import fit_similarity_masked
     from video_stabilization_tpu_torch.ops.gftt import good_features_to_track
     from video_stabilization_tpu_torch.ops.image import bgr_to_gray, resize_bilinear
@@ -1656,13 +1656,11 @@ def own_mode_differs(before, frames, cfg, stream_modes, carry, out) -> list:
     mode (K = 1, the mixed call's warp arguments), each mode's run from a
     clone of ``before``: outputs and lock state, bit for bit."""
     from video_stabilization_tpu_torch.engine import map_carry, offline_batched_chunk_step
-    from video_stabilization_tpu_torch.parallel.streams import _batched_config
 
-    bcfg = _batched_config(cfg)
     bad = []
     for m in sorted(set(stream_modes)):
         ref, (ref_out, _) = offline_batched_chunk_step(
-            map_carry(torch.clone, before), frames[:, None], bcfg, streaming=True,
+            map_carry(torch.clone, before), frames[:, None], cfg, form="batched_mixed",
             modes=[m] * len(stream_modes))
         for s in (s for s, ms in enumerate(stream_modes) if ms == m):
             same = torch.equal(ref_out[s, 0], out[s]) and all(
@@ -1688,7 +1686,7 @@ def phase_mixed(cfg, seed: int, dev, card: str, one_mode: dict) -> dict:
     one-mode batched step (``one_mode``) and peak device memory."""
     from video_stabilization_tpu_torch.config import StabilizationMode
     from video_stabilization_tpu_torch.engine import map_carry
-    from video_stabilization_tpu_torch.engine.stabilizer import accumulating_modes
+    from video_stabilization_tpu_torch.engine.offline import accumulating_modes
     from video_stabilization_tpu_torch.ops import affine_warp as aw
     from video_stabilization_tpu_torch.ops import fast
     from video_stabilization_tpu_torch.parallel import make_batched_step_fn, streams

@@ -204,8 +204,7 @@ def test_profile_stages_taxonomy():
             c, _ = stabilize_step(c, frame, cfg, 0)
 
     stage_ms = profile_stages(run, "cpu", n_calls=2)
-    for name in ("gray", "lk_track", "inter_frame_fit", "smoothing", "warp", "gftt", "total",
-                 "other"):
+    for name in ("gray_pyramid", "lk", "fit", "smoothing", "warp", "gftt", "total", "other"):
         assert stage_ms[name] >= 0.0, name
     line = format_taxonomy(stage_ms)
     assert "goodFeaturesToTrack" in line and "warpPerspective" in line and "total" in line

@@ -309,7 +309,7 @@ def test_offline_kernel_matches_plain_warp(dev, mode):
     from video_stabilization_tpu_torch.config import (
         ECCConfig, SIFTConfig, StabilizationMode, StabilizerConfig)
     from video_stabilization_tpu_torch.engine import (
-        init_carry, stabilize_clip_offline, stabilizer)
+        init_carry, offline, stabilize_clip_offline)
     from video_stabilization_tpu_torch.ops import ecc, lk_dense
     from video_stabilization_tpu_torch.sim import (
         DEFAULT_APP_PARAMS, make_default_texture, render_frame, shake_trajectory)
@@ -337,7 +337,7 @@ def test_offline_kernel_matches_plain_warp(dev, mode):
     c_k, out_k = run()
     launches = 2 * 5 + (cfg.ecc.max_iters + 2 if cfg.ecc.enabled else 0) * 8
     assert aw.launches - before == launches
-    with mock.patch.object(stabilizer, "warp_affine", aw.warp_affine_plain), \
+    with mock.patch.object(offline, "warp_affine", aw.warp_affine_plain), \
             mock.patch.object(lk_dense, "warp_affine", aw.warp_affine_plain), \
             mock.patch.object(ecc, "warp_affine", aw.warp_affine_plain):
         c_p, out_p = run()
@@ -354,7 +354,7 @@ def test_batched_step_kernel_matches_plain_warp(dev):
     from unittest import mock
 
     from video_stabilization_tpu_torch.config import StabilizationMode, StabilizerConfig
-    from video_stabilization_tpu_torch.engine import make_offline_batched_fn, stabilizer
+    from video_stabilization_tpu_torch.engine import make_offline_batched_fn, offline
     from video_stabilization_tpu_torch.ops import lk_dense
     from video_stabilization_tpu_torch.parallel import init_batched_carry, make_batched_step_fn
     from video_stabilization_tpu_torch.sim import (
@@ -390,7 +390,7 @@ def test_batched_step_kernel_matches_plain_warp(dev):
     before = aw.launches
     a_k, b_k, outs_k = run()
     assert aw.launches - before == 5 * (6 + 2)
-    with mock.patch.object(stabilizer, "warp_affine", aw.warp_affine_plain), \
+    with mock.patch.object(offline, "warp_affine", aw.warp_affine_plain), \
             mock.patch.object(lk_dense, "warp_affine", aw.warp_affine_plain):
         a_p, b_p, outs_p = run()
     for k, p in zip(outs_k, outs_p):

@@ -262,13 +262,13 @@ def test_stabilize_clip_matches_per_frame(footage):
     assert int(a.carry.n) == 6
 
 
-# dense LK's phases, inside ``lk_track`` (streaming) or ``lk`` (the chunk)
+# dense LK's phases, inside the body's ``lk``
 LK_STAGES = {"lk_sweep", "lk_levels", "lk_level0", "lk_gate"}
-STAGES = {"gray", "pyramid", "lk_track", "inter_frame_fit", "smoothing",
+STAGES = {"gray_pyramid", "lk", "fit", "smoothing", "lock", "lock_detect", "lock_register",
           "nearest_downscale", "preprocess", "match", "lock_ransac", "rotation_split",
           "warp", "gftt", "input_h2d", "step"} | LK_STAGES
-LOCK_STAGES = {ORB: {"orb_lock", "orb_detect"},
-               SIFT: {"sift_lock", "sift_detect", "sift_scale_space", "ecc"}}
+LOCK_STAGES = {ORB: {"orb_detect"},
+               SIFT: {"sift_detect", "sift_scale_space", "ecc"}}
 # the offline chunk's stages (once per chunk) and the lock's own (per frame)
 OFFLINE_STAGES = {"gray_pyramid", "gftt", "lk", "fit", "smoothing", "lock", "lock_detect",
                   "lock_register", "rotation_split", "warp"} | LK_STAGES

@@ -37,7 +37,6 @@ from video_stabilization_tpu_torch.engine import map_carry, offline_batched_chun
 from video_stabilization_tpu_torch.parallel import (
     Sharded, make_batched_scan_fn, make_batched_step_fn, make_sharded_step_fn,
     make_stream_mesh, shard_carry, unshard)
-from video_stabilization_tpu_torch.parallel.streams import _batched_config
 from test_parallel import tiny_config
 from test_torch_engine import LAST_H_DRIFT, LOCK_MATCHES, MEAN_U8, WITHIN_1, corner_drift
 from test_torch_offline import assert_frames_close_gather
@@ -219,7 +218,7 @@ def test_each_stream_is_its_own_modes_run(frames, port_batched):
     arguments, on a copy of the mixed start carry's streams in that mode:
     on the CPU a sub-batch rounds as the whole batch does): outputs and
     lock state, frame by frame over the first ``SWITCH_AT`` frames."""
-    cfg = _batched_config(config_from_fields(dynamic_config()))
+    cfg = config_from_fields(dynamic_config())
     start = mixed_carry()
     runs = {}
     for m in sorted(set(MODES)):
@@ -229,7 +228,7 @@ def test_each_stream_is_its_own_modes_run(frames, port_batched):
         mixed = port_batched[0][t]
         for m, (idx, carry) in runs.items():
             carry, (out, _) = offline_batched_chunk_step(
-                carry, torch.from_numpy(frames[t, idx])[:, None], cfg, streaming=True,
+                carry, torch.from_numpy(frames[t, idx])[:, None], cfg, form="batched_mixed",
                 modes=[m] * len(idx))
             runs[m] = (idx, carry)
             where = f"frame {t} mode {m}"

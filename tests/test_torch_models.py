@@ -33,7 +33,7 @@ from video_stabilization_tpu_torch.config import RansacConfig as TRansacConfig
 from video_stabilization_tpu_torch.config import config_from_fields
 from video_stabilization_tpu_torch.engine import (
     Stabilizer, init_carry, stabilize_clip_offline)
-from video_stabilization_tpu_torch.engine import stabilizer as t_stabilizer
+from video_stabilization_tpu_torch.engine import offline as t_offline
 from video_stabilization_tpu_torch.models import (
     MotionModel, fit_affine_masked, fit_homography_dlt, fit_motion)
 from video_stabilization_tpu_torch.motion.ransac import estimate_similarity_ransac
@@ -321,10 +321,9 @@ def test_warp_calls_per_frame(footage, model, warps_per_frame):
         return run
 
     with mock.patch.object(t_lk_dense, "warp_affine", counting("lk", t_lk_dense.warp_affine)), \
-            mock.patch.object(t_stabilizer, "warp_affine",
-                              counting("out", t_stabilizer.warp_affine)), \
-            mock.patch.object(t_stabilizer, "warp_perspective",
-                              counting("persp", t_stabilizer.warp_perspective)):
+            mock.patch.object(t_offline, "warp_affine", counting("out", t_offline.warp_affine)), \
+            mock.patch.object(t_offline, "warp_perspective",
+                              counting("persp", t_offline.warp_perspective)):
         for frame in footage[:3]:
             ts.stabilize_frame(frame)
     assert calls["lk"] + calls["out"] == warps_per_frame * 3

@@ -10,6 +10,7 @@ each offline mode.
 """
 
 import dataclasses
+import functools
 from unittest import mock
 
 import jax
@@ -26,7 +27,7 @@ from video_stabilization_tpu_torch.engine import (
     Stabilizer, carry_from_numpy, init_carry, make_offline_fn, offline_chunk_step,
     stabilize_clip_offline)
 from video_stabilization_tpu_torch.engine import lock as t_lock
-from video_stabilization_tpu_torch.engine import stabilizer as t_stabilizer
+from video_stabilization_tpu_torch.engine import offline as t_offline
 from video_stabilization_tpu_torch.sim import (
     DEFAULT_APP_PARAMS, make_default_texture, render_frame, shake_trajectory)
 from video_stabilization_tpu_torch.motion.ransac import estimate_similarity_ransac
@@ -338,8 +339,8 @@ def test_offline_warp_arguments(footage, case):
             return fn(*a, **kw)
         return wrapped
 
-    with mock.patch.object(t_stabilizer, "warp_affine",
-                           recorder("output", t_stabilizer.warp_affine, "projective_fallback")), \
+    with mock.patch.object(t_offline, "warp_affine",
+                           recorder("output", t_offline.warp_affine, "projective_fallback")), \
             mock.patch.object(t_lk_dense, "warp_affine",
                               recorder("lk", t_lk_dense.warp_affine, "projective_fallback")), \
             mock.patch.object(t_lock, "ecc_refine_euclidean",
@@ -348,6 +349,76 @@ def test_offline_warp_arguments(footage, case):
     assert seen["output"] == [want_output]
     assert seen["lk"] == [False] * 4
     assert seen["ecc"] == ([False] * 2 if mode == M.SIFT_FULL_LOCK else [])
+
+
+# form: (LK's warp_fallback, the output warp's projective_fallback in
+# GLOBAL_SMOOTHING and in ORB_FULL_LOCK, ECC's warp_fallback), with both of
+# the config's fallbacks on: each form's JAX function's own arguments
+FORM_ARGUMENTS = {
+    "step": (True, (True, True), True),
+    "batched": (False, (False, True), True),
+    "batched_mixed": (False, (True, True), True),
+    "offline": (False, (False, True), False),
+    "offline_batched": (False, (False, False), False),
+    "chunk": (True, (False, True), False),
+}
+
+
+def run_form(form, mode, frames):
+    """Two frames of one stream in ``mode`` through ``form``'s entry point,
+    with ECC on."""
+    from video_stabilization_tpu_torch.engine import make_offline_batched_fn
+    from video_stabilization_tpu_torch.parallel import init_batched_carry, make_batched_step_fn
+
+    cfg = config_from_fields(dataclasses.replace(small_config(past=2, future=1),
+                                                 ecc=ECCConfig(enabled=True, max_iters=2)))
+    tcfg = dataclasses.replace(cfg, static_mode=int(mode))
+    frames = torch.from_numpy(frames[:2])
+    if form == "step":
+        stab = Stabilizer(cfg, mode, device="cpu")
+        for f in frames:
+            stab.stabilize_frame(f)
+    elif form in ("batched", "batched_mixed"):
+        step = make_batched_step_fn(tcfg if form == "batched" else cfg)
+        carry = init_batched_carry(cfg, 1, int(mode), prng.key(SEED), "cpu")
+        for f in frames:
+            carry, _ = step(carry, f[None])
+    elif form == "offline_batched":
+        make_offline_batched_fn(tcfg)(init_batched_carry(cfg, 1, int(mode), prng.key(SEED),
+                                                         "cpu"), frames[None])
+    else:
+        fn = make_offline_fn(tcfg) if form == "offline" else functools.partial(
+            offline_chunk_step, config=tcfg)
+        fn(init_carry(tcfg, int(mode), prng.key(SEED), "cpu"), frames)
+
+
+@pytest.mark.parametrize("form", list(FORM_ARGUMENTS))
+def test_form_warp_arguments(footage, form):
+    """Each row of ``engine/offline.py::FORMS``, through its entry point in
+    a bounded mode and in a registration lock: the ``warp_fallback`` of
+    LK's warps and of ECC and the output warp's ``projective_fallback``."""
+    assert set(t_offline.FORMS) == set(FORM_ARGUMENTS)
+    want_lk, want_output, want_ecc = FORM_ARGUMENTS[form]
+    for mode, want_out in zip((M.GLOBAL_SMOOTHING, M.ORB_FULL_LOCK), want_output):
+        seen = {"output": [], "lk": [], "ecc": []}
+
+        def recorder(key, fn, arg):
+            def wrapped(*a, **kw):
+                seen[key].append(kw[arg])
+                return fn(*a, **kw)
+            return wrapped
+
+        with mock.patch.object(t_offline, "warp_affine",
+                               recorder("output", t_offline.warp_affine, "projective_fallback")), \
+                mock.patch.object(t_lk_dense, "warp_affine",
+                                  recorder("lk", t_lk_dense.warp_affine, "projective_fallback")), \
+                mock.patch.object(t_lock, "ecc_refine_euclidean",
+                                  recorder("ecc", t_lock.ecc_refine_euclidean, "warp_fallback")):
+            run_form(form, mode, footage)
+        calls = 2 if form in ("step", "batched", "batched_mixed") else 1     # a call a frame
+        assert seen["output"] == [want_out] * calls, mode
+        assert seen["lk"] == [want_lk] * 4 * calls, mode
+        assert seen["ecc"] == ([want_ecc] * 2 if mode == M.ORB_FULL_LOCK else []), mode
 
 
 def test_offline_chunk_step_follows_the_carry(footage):

@@ -306,12 +306,13 @@ def test_serve_main_simulator(tmp_path):
     os.rmdir(os.path.dirname(inputs[0]))
 
 
-def test_serve_main_over_a_mesh(tmp_path):
+@pytest.mark.parametrize("mode", ["smoothing", "accumulated"])
+def test_serve_main_over_a_mesh(tmp_path, mode):
     """``main`` serves over the mesh it is given: two streams over two
-    "cpu" slots."""
+    "cpu" slots, in a mode given in the serve CLI's spelling."""
     out = tmp_path / "out"
     assert serve.main(["--simulator", "2", "--frames", "2", "--sim-size", "160x120",
-                       "--chunk", "2", "--working-height", "100", "--output-dir", str(out)],
-                      device=["cpu", "cpu"]) == 0
+                       "--chunk", "2", "--working-height", "100", "--output-dir", str(out),
+                       "--mode", mode], device=["cpu", "cpu"]) == 0
     assert serve.last_run["devices"] == ["cpu", "cpu"] and serve.last_run["frames"] == 2
     assert len(read_frames(str(out / "stabilized_stream1.y4m"))) == 2

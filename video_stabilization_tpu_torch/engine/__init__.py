@@ -1,5 +1,6 @@
-"""The stabilization engine: carry, per-frame step and its factories,
-offline chunks (of one stream or of S), smoothing, modes, checkpoints."""
+"""The stabilization engine: carry, the one step body and its forms (the
+per-frame step, offline chunks of one stream or of S), smoothing, modes,
+checkpoints."""
 
 from video_stabilization_tpu_torch.engine.checkpoint import (  # noqa: F401
     carry_from_numpy,
@@ -13,6 +14,7 @@ from video_stabilization_tpu_torch.engine.lock import (  # noqa: F401
     sift_lock,
 )
 from video_stabilization_tpu_torch.engine.offline import (  # noqa: F401
+    frame_keys,
     make_offline_batched_fn,
     make_offline_fn,
     offline_batched_chunk_step,
@@ -22,7 +24,6 @@ from video_stabilization_tpu_torch.engine.offline import (  # noqa: F401
 from video_stabilization_tpu_torch.engine.smoothing import smoothing_homography  # noqa: F401
 from video_stabilization_tpu_torch.engine.stabilizer import (  # noqa: F401
     Stabilizer,
-    frame_keys,
     make_scan_fn,
     make_step_ext_fn,
     make_step_fn,

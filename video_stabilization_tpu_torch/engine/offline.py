@@ -1,18 +1,30 @@
-"""Offline chunked pipeline: K consecutive frames per call, the per-frame
-stages batched over the chunk, and over S streams.
+"""The engine's one step body, over S streams of K frames, and its forms.
 
 Port of ``video_stabilization_tpu/engine/offline.py`` (``offline_chunk_step``,
 ``_offline_config``, ``make_offline_fn``, ``make_offline_batched_fn``,
-``stabilize_clip_offline``).  The expensive stages of frame i depend only on
-frames i-1 and i, so a chunk runs them for all K frames at once; the JAX
-package vmaps the chunk over streams, the port writes the stream dimension
-out, so there is one chunk body, :func:`offline_batched_chunk_step`, over S
-streams of K frames each (``offline_chunk_step`` is its S = 1 case):
+``stabilize_clip_offline``) and of the stages of the JAX package's streaming
+step.  The JAX package writes the streaming step and the chunk apart and
+vmaps them over streams; the port writes the stream dimension out and keeps
+one sequence of stages, :func:`offline_batched_chunk_step`, over S streams
+of K frames each.  Every form is a call of it:
+
+  - the streaming step (``engine/stabilizer.py::stabilize_step``, which
+    ``Stabilizer`` replays as a CUDA graph): one stream, one frame;
+  - the batched step, its scan and the sharded step
+    (``parallel/streams.py``): S streams, one frame;
+  - the offline chunk (:func:`offline_chunk_step`, :func:`make_offline_fn`):
+    one stream, K frames;
+  - the stream-batched chunk and its sharded form
+    (:func:`make_offline_batched_fn`): S streams, K frames.
+
+The expensive stages of frame i depend only on frames i-1 and i, so the
+body runs them for all S·K frames at once:
 
   1. gray, pyramid and GFTT of the S·K frames as one batch;
   2. dense LK of the S·K pairs (each stream's carry pyramid and corners
      seed its pair 0) as one batch, then RANSAC and de-scale of the S·K
-     pairs as one batch;
+     pairs as one batch; or the motion a host estimator computed
+     (``ext_motion``, the referee's);
   3. the short sequential chains as tensor ops over K: the K smoothing
      windows, the accumulated lock's masked prefix product (newest factor
      on the left) and the registration lock's sticky fallback;
@@ -25,42 +37,37 @@ and K.  The registration lock (detection, matching, RANSAC, ECC) stays per
 frame, in a Python loop over the streams and then the chunk that reads
 nothing back.
 
-Semantics: K calls of :func:`~video_stabilization_tpu_torch.engine.stabilizer.stabilize_step`
-per stream for any K up to the window W, with each stream's own ``fold_in``
-frame keys (of its own frame counter), the first-frame quirk, lock
-anchoring and sticky fallbacks.  Presentation frame j comes from the chunk
-itself when it is one of the chunk's frames, else from the ring as it was
-before the chunk's write.  (The JAX package reads all K from the ring after
-the write, so there a frame written later in the chunk overwrites an
-earlier presentation frame whenever K >= past_frames + 2; ROADMAP Queue 3.)
+Semantics: K streaming steps per stream for any K up to the window W, with
+each stream's own ``fold_in`` frame keys (of its own frame counter), the
+first-frame quirk, lock anchoring and sticky fallbacks.  Presentation frame
+j comes from the chunk itself when it is one of the chunk's frames, else
+from the ring as it was before the chunk's write.  (The JAX package reads
+all K from the ring after the write, so there a frame written later in the
+chunk overwrites an earlier presentation frame whenever K >= past_frames +
+2; ROADMAP Queue 3.)
 
-The warps take the JAX offline path's arguments: LK's and ECC's without the
-projective fallback; the output warp without it in the bounded modes
-(GLOBAL_SMOOTHING, TRANSLATION_LOCK) and with ``warp_projective_fallback``
-in the others, which frame by frame is the JAX chunk-wide ``cond``
-(``make_offline_batched_fn`` drops it in those too, as the JAX function
-does).
+The forms differ only in what :data:`FORMS` holds, one row each: the
+streaming step's stages or the JAX offline chunk's, and the arguments of
+the three kinds of warp (LK's, the output warp's, ECC's).
 
 The offline forms require ``config.static_mode``, as the JAX package's do;
 K must not exceed W (the frame ring is written once per chunk).  The
-batched step (K = 1, ``streaming``) also takes streams in mixed modes: with
-no static mode it is given the S streams' host modes (``modes``, one read
-of ``carry.mode`` per call by its caller) and runs the shared stages once
-over all S streams; only the lock stage and the tail depend on the mode.
-The accumulated lock runs over all S streams and is kept where a stream's
-mode accumulates (a ``torch.where`` on a mask made on the device from
-``carry.mode``), the registration lock runs for the ORB and SIFT streams
-alone, each with its own detector, and the tail selects each stream's
-stabilizing homography by its ``carry.mode`` before the one batched output
-warp, which keeps ``warp_projective_fallback`` for every stream, as JAX
-keeps it when no mode is pinned.
+streaming forms take the streams' host modes instead (``modes``: the
+streaming step's one mode, or the batched step's read of ``carry.mode``)
+and run the shared stages once over all S streams; only the lock stage and
+the tail depend on the mode.  In a batch of mixed modes the accumulated
+lock runs over all S streams and is kept where a stream's mode accumulates
+(a ``torch.where`` on a mask made on the device from ``carry.mode``), the
+registration lock runs for the ORB and SIFT streams alone, each with its
+own detector, and the tail selects each stream's stabilizing homography by
+its ``carry.mode`` before the one batched output warp.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -68,33 +75,216 @@ import torch
 from video_stabilization_tpu_torch.config import StabilizationMode, StabilizerConfig
 from video_stabilization_tpu_torch.engine.lock import _registration_lock, detect_features
 from video_stabilization_tpu_torch.engine.smoothing import _prefix_products, smoothing_homography
-from video_stabilization_tpu_torch.engine.stabilizer import (
-    _fit_inter_frame,
-    accumulating_modes,
-    corner_config,
-    frame_keys,
-    next_corners,
-    stabilized_outputs,
-    working_gray,
-)
 from video_stabilization_tpu_torch.engine.state import EngineCarry, map_carry
-from video_stabilization_tpu_torch.ops.gftt import good_features_to_track
-from video_stabilization_tpu_torch.ops.image import bgr_to_gray, resize_bilinear
+from video_stabilization_tpu_torch.models.motion_models import MotionModel, fit_motion
+from video_stabilization_tpu_torch.motion.homography import (
+    HomographyParams,
+    compose_homography,
+    decompose_homography,
+    remove_isotropic_scale,
+)
+from video_stabilization_tpu_torch.motion.ransac import estimate_similarity_ransac
+from video_stabilization_tpu_torch.ops.affine_warp import affine_envelope_ok, warp_affine
+from video_stabilization_tpu_torch.ops.gftt import Corners, good_features_to_track
+from video_stabilization_tpu_torch.ops.image import (
+    bgr_to_gray, gray_u8_cv2exact, resize_bilinear)
 from video_stabilization_tpu_torch.ops.lk import lk_track
 from video_stabilization_tpu_torch.ops.pyramid import build_pyramid
-from video_stabilization_tpu_torch.ops.warp import _inv3x3
+from video_stabilization_tpu_torch.ops.warp import _inv3x3, warp_perspective
+from video_stabilization_tpu_torch.utils import prng
 from video_stabilization_tpu_torch.utils.precision import in_float32
 from video_stabilization_tpu_torch.utils.stage_profile import stage
 
+ACCUM_MODES = (
+    StabilizationMode.ACCUMULATED_FULL_LOCK,
+    StabilizationMode.TRANSLATION_LOCK,
+    StabilizationMode.ROTATION_LOCK,
+)
 # Modes whose output correction is bounded by construction, so the warp's
 # ~9-degree rotation envelope always holds: smoothing corrects only residual
 # shake around the window average, and translation lock cancels rotation
-# before warping.  Their output warp never takes the projective fallback
-# (JAX offline.py _BOUNDED_MODES, parallel/streams.py _BOUNDED_WARP_MODES).
-# The accumulated / rotation / ORB / SIFT locks track an absolute pose
-# offset that can grow without bound.
+# before warping.  The accumulated / rotation / ORB / SIFT locks track an
+# absolute pose offset that can grow without bound.
 BOUNDED_MODES = (StabilizationMode.GLOBAL_SMOOTHING, StabilizationMode.TRANSLATION_LOCK)
 REGISTRATION_MODES = (StabilizationMode.ORB_FULL_LOCK, StabilizationMode.SIFT_FULL_LOCK)
+
+
+class Form(NamedTuple):
+    """One row of :data:`FORMS`."""
+
+    streaming: bool         # the streaming step's stages, else the JAX offline chunk's
+    lk_fallback: bool       # LK's warps keep ``config.lk.warp_fallback``, else without it
+    output_modes: tuple     # the modes whose output warp keeps ``warp_projective_fallback``
+    ecc_fallback: bool      # ECC's ``warp_fallback``
+
+
+ALL_MODES = tuple(StabilizationMode)
+UNBOUNDED_MODES = tuple(m for m in StabilizationMode if m not in BOUNDED_MODES)
+
+# Each form takes the arguments of the JAX function it ports, quirks
+# included (ROADMAP Queue 1, "Faults of the reference"): the JAX batched
+# step keeps the output warp's projective fallback in the unbounded modes
+# (every mode when none is pinned) where the stream-batched chunk drops it in
+# every mode; LK's warps, which remove the current global-motion estimate
+# first, run without it in the batched and offline forms; ECC keeps it only
+# where the streaming step's stages run.  The streaming stages: cv2's exact
+# u8 gray under ``reference_compat``, empty corner lanes for
+# ``gftt.selection="host"`` (:func:`next_corners`) and host ``modes``; the
+# chunk's: the float gray and :func:`corner_config`'s detector ("host" runs
+# the cell selection).
+FORMS = {
+    "step": Form(True, True, ALL_MODES, True),                    # stabilize_step
+    "batched": Form(True, False, UNBOUNDED_MODES, True),          # make_batched_step_fn, pinned
+    "batched_mixed": Form(True, False, ALL_MODES, True),          # ... no static mode
+    "offline": Form(False, False, UNBOUNDED_MODES, False),        # make_offline_fn
+    "offline_batched": Form(False, False, (), False),             # make_offline_batched_fn
+    "chunk": Form(False, True, UNBOUNDED_MODES, False),           # the body called directly
+}
+
+
+def accumulating_modes(config: StabilizerConfig) -> tuple:
+    """The modes that anchor and advance the accumulated lock: under
+    ``reference_compat`` only ACCUMULATED_FULL_LOCK, since the reference's
+    translation and rotation locks are no-ops (H_lock identity,
+    src/stabilizer.cpp:790)."""
+    if config.reference_compat:
+        return (StabilizationMode.ACCUMULATED_FULL_LOCK,)
+    return ACCUM_MODES
+
+
+def working_gray(frames: torch.Tensor, config: StabilizerConfig) -> torch.Tensor:
+    """(..., Hf, Wf, C) u8 frames -> (..., wh, ww) f32 working gray: cv2's
+    exact u8 gray under ``reference_compat`` (a ±1 level perturbs the
+    referee's corner list), else resize then gray, the reference's order."""
+    wh, ww = config.working_size
+    if config.reference_compat:
+        return gray_u8_cv2exact(frames, wh, ww)
+    return bgr_to_gray(resize_bilinear(frames.float(), wh, ww))
+
+
+def corner_config(config: StabilizerConfig):
+    """The next frame's corner detector: cv2's exact list under
+    ``reference_compat`` (corner-set selection dominates the drift against
+    the reference), else ``config.gftt``."""
+    if config.reference_compat and config.gftt.selection != "cv2exact":
+        return dataclasses.replace(config.gftt, selection="cv2exact")
+    return config.gftt
+
+
+def next_corners(gray: torch.Tensor, config: StabilizerConfig) -> Corners:
+    """The streaming step's corners for the next frame on (..., wh, ww)
+    grays: with ``gftt.selection="host"`` empty lanes (the host injects its
+    element-exact list after the step, ``Stabilizer.stabilize_frame``),
+    else :func:`corner_config`'s detector."""
+    if config.gftt.selection == "host":
+        lead = gray.shape[:-2]
+        nf = config.gftt.max_features
+        zeros = torch.zeros(lead + (nf,), dtype=torch.float32, device=gray.device)
+        return Corners(points=torch.zeros(lead + (nf, 2), dtype=torch.float32,
+                                          device=gray.device),
+                       response=zeros, mask=torch.zeros_like(zeros, dtype=torch.bool))
+    return good_features_to_track(gray, corner_config(config))
+
+
+def _rotation_about(theta: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
+    """Rotation by -theta (y-down) about ``center`` as a 3x3 homography
+    (cv::getRotationMatrix2D)."""
+    zero2 = torch.zeros(theta.shape + (2,), dtype=theta.dtype, device=theta.device)
+    p = HomographyParams(scale=torch.ones_like(theta), theta=-theta,
+                         k=torch.ones_like(theta), delta=torch.zeros_like(theta),
+                         t=zero2, v=zero2)
+    return compose_homography(p, center)
+
+
+def _fit_inter_frame(src, dst, status, key, config: StabilizerConfig, center):
+    """RANSAC fit of the tracked correspondences -> (result, inter-frame T).
+    Rigid: the similarity fit, then removal of the isotropic scale about the
+    image centre.  Other models: similarity hypotheses select the inliers,
+    the configured model refits on them (LO-RANSAC)."""
+    if config.ransac.motion_model == "rigid":
+        ransac = estimate_similarity_ransac(src, dst, status, key, config.ransac)
+        t_rigid, _ = remove_isotropic_scale(ransac.h, center)
+        return ransac, t_rigid
+    model = MotionModel(config.ransac.motion_model)
+    ransac = estimate_similarity_ransac(
+        src, dst, status, key, config.ransac,
+        refit_fn=lambda s, d, w: fit_motion(model, s, d, w, center))
+    return ransac, ransac.h
+
+
+def frame_keys(base_key: torch.Tensor, n: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(k_ransac, k_lock) of frame ``n``: ``fold_in(key, 2n)`` and
+    ``fold_in(key, 2n + 1)``, as in the JAX package."""
+    return prng.fold_in(base_key, n * 2), prng.fold_in(base_key, n * 2 + 1)
+
+
+def stabilized_outputs(mode, h_smooth, h_lock, pres_frames, frames, is_first, center,
+                       scale_factor, projective_fallback: bool, homography: bool = False):
+    """The body's tail over any leading dims ((S, K) in the body): rotation
+    split of ``h_lock``, the mode's stabilizing homography, its rescale to
+    full resolution, and one batched warp of all (..., Hf, Wf, C)
+    presentation frames, each with the border 0.5 · its mean colour; where
+    ``is_first``, the new frame in ``frames`` passes through unwarped.  With
+    ``homography`` (the homography motion model) the projective row rescales
+    too and the frames go through ``warp_perspective``, which has no
+    envelope.  ``mode`` is a host int, or an int32 tensor that broadcasts
+    against the leading dims (the (S, 1) modes of a batch of streams in
+    mixed modes, on the device): each item then takes its own mode's
+    homography by ``torch.where``.  Returns (h_stab (..., 3, 3), outputs
+    (..., Hf, Wf, C) u8, (...) bool: ``h_stab`` outside the warp kernel's
+    envelope)."""
+    eye = torch.eye(3, dtype=torch.float32, device=h_lock.device)
+    with stage("rotation_split"):
+        lock_params, lock_ok = decompose_homography(h_lock, center)
+    h_lock = torch.where(lock_ok[..., None, None], h_lock, eye)
+
+    def translation_lock():
+        return torch.matmul(_rotation_about(lock_params.theta, center), h_lock)
+
+    def rotation_lock():
+        return _rotation_about(-lock_params.theta, center)
+
+    if isinstance(mode, torch.Tensor):      # each item its own mode, on the device
+        m = mode[..., None, None]
+        h_stab = torch.where(
+            m == int(StabilizationMode.GLOBAL_SMOOTHING), h_smooth, torch.where(
+                m == int(StabilizationMode.TRANSLATION_LOCK), translation_lock(), torch.where(
+                    m == int(StabilizationMode.ROTATION_LOCK), rotation_lock(), h_lock)))
+    else:
+        h_stab = {StabilizationMode.GLOBAL_SMOOTHING: lambda: h_smooth,
+                  StabilizationMode.TRANSLATION_LOCK: translation_lock,
+                  StabilizationMode.ROTATION_LOCK: rotation_lock,
+                  }.get(StabilizationMode(int(mode)), lambda: h_lock)()
+
+    # the affine block is scale-invariant: the translation divides by the
+    # factor, a projective row multiplies by it
+    h_scaled = h_stab.clone()
+    h_scaled[..., 0:2, 2] = h_stab[..., 0:2, 2] / scale_factor
+    with stage("warp"):
+        pres = pres_frames.reshape((-1,) + pres_frames.shape[-3:]).float()
+        border = 0.5 * pres.mean(dim=(1, 2))
+        if homography:
+            h_scaled[..., 2, 0:2] = h_scaled[..., 2, 0:2] * scale_factor
+            outside = torch.zeros(h_scaled.shape[:-2], dtype=torch.bool, device=h_scaled.device)
+            out = warp_perspective(pres, h_scaled.reshape(-1, 3, 3), None, border)
+        else:
+            outside = ~affine_envelope_ok(h_scaled)
+            out = warp_affine(pres, h_scaled.reshape(-1, 3, 3), border_value=border,
+                              projective_fallback=projective_fallback)
+        warped_u8 = torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
+    outputs = torch.where(is_first[..., None, None, None], frames.to(torch.uint8),
+                          warped_u8.reshape(pres_frames.shape))
+    return h_stab, outputs, outside
+
+
+def step_constants(config: StabilizerConfig, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(center (2,) f32, scale_factor () f32) of ``config`` on ``device``:
+    the working image's centre and the working-to-full scale.  They go up
+    without a blocking copy (a pageable source is staged by the CUDA
+    runtime before the call returns)."""
+    wh, ww = config.working_size
+    return (torch.tensor([ww / 2.0, wh / 2.0]).to(device, non_blocking=True),
+            torch.tensor(config.scale_factor).to(device, non_blocking=True))
 
 
 def require_static_mode(config: StabilizerConfig, what: str) -> StabilizationMode:
@@ -143,39 +333,46 @@ def offline_batched_chunk_step(
     frames: torch.Tensor,
     config: StabilizerConfig,
     *,
-    streaming: bool = False,
+    form: str = "chunk",
     modes: Optional[Sequence[int]] = None,
+    ext_motion=None,
+    center: torch.Tensor | None = None,
+    scale_factor: torch.Tensor | None = None,
 ) -> Tuple[EngineCarry, Tuple[torch.Tensor, torch.Tensor]]:
     """Process K consecutive frames of each of S streams, (S, K, Hf, Wf, C)
     uint8 on the carry's device, with a carry of S streams (every tensor
     (S, ...)) -> (carry', (outputs (S, K, Hf, Wf, C) u8, valid (S, K))),
-    the same as K ``stabilize_step`` calls per stream.  ``carry.frames`` is
-    updated in place.
+    the same as K streaming steps per stream.  ``carry.frames`` is updated
+    in place.
 
-    ``streaming`` gives the batched step (K = 1) the streaming step's
-    stages where the JAX offline chunk differs from it: ECC with its warp
-    fallback, cv2's exact u8 gray under ``reference_compat`` and empty
-    corner lanes for ``gftt.selection="host"``.  Without it the chunk
-    takes the JAX offline chunk's: the float gray, and the detector of
-    ``corner_config`` (``"host"`` runs the cell selection).
+    ``form``: the row of :data:`FORMS` the call runs; by default the chunk
+    body's own.
 
-    ``modes``: the S streams' modes as host ints (``carry.mode`` read by
-    the caller), for the batched step in mixed modes: used only when
-    ``config.static_mode`` is None and ``streaming`` is set; without a
-    static mode and without them the call raises."""
+    ``modes``: the S streams' modes as host ints, for the streaming forms
+    without ``config.static_mode`` (which overrides them); the offline
+    forms and the streaming forms without either raise.
+
+    ``ext_motion``: an optional ``(h (S, K, 3, 3) f32, valid (S, K) bool,
+    n_inliers (S, K) int32)`` inter-frame rigid motion computed by a host
+    estimator (the cv2exact RANSAC replica, ``motion/cv2_ransac.py``);
+    given, the call skips its own LK and RANSAC stages.
+
+    ``center`` and ``scale_factor``: the working image's (2,) f32 centre and
+    the () f32 working-to-full scale on the carry's device, as
+    :func:`step_constants` makes them; without them the call uploads both
+    from the host, which a CUDA graph's capture refuses."""
+    row = FORMS[form]
     s_n, k = frames.shape[:2]
     if config.static_mode is not None:
-        mode = StabilizationMode(int(config.static_mode))
-        modes = [mode] * s_n
-        fallback = config.warp_projective_fallback and mode not in BOUNDED_MODES
-    elif modes is not None and streaming:
-        mode = carry.mode[:, None]          # (S, 1): the tail's per-stream select
-        modes = [StabilizationMode(int(m)) for m in modes]
-        if len(modes) != s_n:
-            raise ValueError(f"{len(modes)} modes for {s_n} streams")
-        fallback = config.warp_projective_fallback
-    else:
+        modes = [config.static_mode] * s_n
+    elif modes is None or not row.streaming:
         require_static_mode(config, "offline pipeline")
+    modes = [StabilizationMode(int(m)) for m in modes]
+    if len(modes) != s_n:
+        raise ValueError(f"{len(modes)} modes for {s_n} streams")
+    # the tail's mode: one host int, or in a batch of mixed modes each
+    # stream's (S, 1) on the device
+    mode = modes[0] if len(set(modes)) == 1 else carry.mode[:, None]
     w = config.total_window
     if k > w:
         raise ValueError(f"chunk size {k} exceeds temporal window {w}")
@@ -189,8 +386,8 @@ def offline_batched_chunk_step(
     f32 = dict(dtype=torch.float32, device=dev)
     future = config.future_frames
     wh, ww = config.working_size
-    center = torch.tensor([ww / 2.0, wh / 2.0]).to(dev, non_blocking=True)
-    scale_factor = torch.tensor(config.scale_factor).to(dev, non_blocking=True)
+    if center is None or scale_factor is None:
+        center, scale_factor = step_constants(config, dev)
     eye = torch.eye(3, **f32)
     frames = frames.to(torch.uint8)
     flat = frames.reshape((s_n * k,) + frames.shape[2:])
@@ -199,6 +396,8 @@ def offline_batched_chunk_step(
         return x.reshape((s_n, k) + x.shape[1:])
 
     def after_carry(prev, x):           # each stream's carry value, then its K-1 first
+        if k == 1:
+            return prev
         return torch.cat([prev[:, None], per_stream(x)[:, :-1]], 1).reshape(x.shape)
 
     n0 = carry.n
@@ -208,27 +407,33 @@ def offline_batched_chunk_step(
 
     # 1. gray, pyramid and GFTT of the S·K frames (resize before gray)
     with stage("gray_pyramid"):
-        if streaming:
+        if row.streaming:
             grays = working_gray(flat, config)
         else:
             grays = bgr_to_gray(resize_bilinear(flat.float(), wh, ww))
         pyrs = build_pyramid(grays, config.lk.pyramid_levels)
     with stage("gftt"):
-        if streaming:
+        if row.streaming:
             corners = next_corners(grays, config)
         else:
             corners = good_features_to_track(grays, corner_config(config))
 
-    # 2. LK and RANSAC of the S·K pairs, each as one batch
-    pts_prev = after_carry(carry.corners_prev, corners.points)
-    with stage("lk"):
-        tracked = lk_track([after_carry(a, b) for a, b in zip(carry.pyr_prev, pyrs)], pyrs,
-                           pts_prev, after_carry(carry.corners_mask, corners.mask), config.lk)
-    with stage("fit"):
-        ransac, t_rigid = _fit_inter_frame(pts_prev, tracked.points, tracked.status,
-                                           k_ransac.reshape(-1, 2), config, center)
+    # 2. LK and RANSAC of the S·K pairs, each as one batch, unless a host
+    # estimator gave the motion
+    if ext_motion is None:
+        lk = config.lk if row.lk_fallback else dataclasses.replace(config.lk, warp_fallback=False)
+        pts_prev = after_carry(carry.corners_prev, corners.points)
+        with stage("lk"):
+            tracked = lk_track([after_carry(a, b) for a, b in zip(carry.pyr_prev, pyrs)], pyrs,
+                               pts_prev, after_carry(carry.corners_mask, corners.mask), lk)
+        with stage("fit"):
+            ransac, t_rigid = _fit_inter_frame(pts_prev, tracked.points, tracked.status,
+                                               k_ransac.reshape(-1, 2), config, center)
+        fit_valid, n_inliers = ransac.valid, ransac.num_inliers
+    else:
+        t_rigid, fit_valid, n_inliers = (x.flatten(0, 1) for x in ext_motion)
     have_prev = ns >= 1
-    t_new = torch.where((have_prev & per_stream(ransac.valid))[..., None, None],
+    t_new = torch.where((have_prev & per_stream(fit_valid))[..., None, None],
                         per_stream(t_rigid), eye)
 
     # 3. the window after step j is ext[:, j+1 : j+w]; ext[:, i] holds the
@@ -300,7 +505,7 @@ def offline_batched_chunk_step(
                         feats, proc, c = found[s, j]
                         res = _registration_lock(feats.points, feats.desc, feats.mask, proc,
                                                  ref, prev_h, k_lock[s, j], config, c, use_orb,
-                                                 ecc_warp_fallback=streaming)
+                                                 ecc_warp_fallback=row.ecc_fallback)
                         ref, prev_h = res.ref, res.prev_h
                         h_s.append(res.h_lock)
                         m_s.append(res.n_matches)
@@ -326,7 +531,8 @@ def offline_batched_chunk_step(
     # 6. rotation split, mode select, rescale and one batched warp
     h_stab, outputs, outside = stabilized_outputs(
         mode, h_smooth, h_lock, pres_frames, frames, ns == 0, center, scale_factor,
-        fallback, config.ransac.motion_model == "homography")
+        config.warp_projective_fallback and all(m in row.output_modes for m in modes),
+        config.ransac.motion_model == "homography")
     out_valid = torch.ones((s_n, k), dtype=torch.bool, device=dev)
 
     new_carry = EngineCarry(
@@ -344,12 +550,26 @@ def offline_batched_chunk_step(
         sift_ref=sift_ref,
         lock_prev_h=lock_prev_h,
         last_h=h_stab[:, -1],
-        last_inliers=per_stream(ransac.num_inliers)[:, -1],
+        last_inliers=per_stream(n_inliers)[:, -1],
         last_lock_matches=lock_matches[:, -1],
         envelope_violations=carry.envelope_violations + outside.sum(-1).to(torch.int32),
         key=carry.key,
     )
     return new_carry, (outputs, out_valid)
+
+
+def one_stream(carry: EngineCarry, frames: torch.Tensor, config: StabilizerConfig, form: str,
+               **kw) -> Tuple[EngineCarry, Tuple[torch.Tensor, torch.Tensor]]:
+    """The body in ``form`` on one stream: a carry without the stream axis
+    and (K, Hf, Wf, C) frames -> (carry', (outputs (K, Hf, Wf, C), valid
+    (K,))).  A tensor the body passes through (the frame ring, updated in
+    place; the key; a lock state the mode leaves alone) comes back as the
+    caller's own."""
+    batched = map_carry(lambda x: x[None], carry)
+    new, (outputs, valid) = offline_batched_chunk_step(batched, frames[None], config,
+                                                       form=form, **kw)
+    return (map_carry(lambda x, b, y: x if y is b else y[0], carry, batched, new),
+            (outputs[0], valid[0]))
 
 
 def offline_chunk_step(
@@ -361,17 +581,7 @@ def offline_chunk_step(
     device -> (carry', (outputs (K, Hf, Wf, C) u8, valid (K,))), the same as
     K ``stabilize_step`` calls: :func:`offline_batched_chunk_step` on one
     stream.  ``carry.frames`` is updated in place."""
-    require_static_mode(config, "offline pipeline")
-    carry, (outputs, valid) = offline_batched_chunk_step(
-        map_carry(lambda x: x[None], carry), frames[None], config)
-    return map_carry(lambda x: x[0], carry), (outputs[0], valid[0])
-
-
-def _offline_config(config: StabilizerConfig) -> StabilizerConfig:
-    """LK's warps without the projective fallback, as the JAX offline path
-    runs them: they remove the current global-motion estimate first, so
-    their transforms are small by construction."""
-    return dataclasses.replace(config, lk=dataclasses.replace(config.lk, warp_fallback=False))
+    return one_stream(carry, frames, config, "chunk")
 
 
 @functools.lru_cache(maxsize=32)
@@ -379,23 +589,18 @@ def make_offline_fn(config: StabilizerConfig) -> Callable:
     """(carry, frames (K, Hf, Wf, C)) -> (carry, (outputs, valid)) for any
     K up to the window, in float32 whatever the caller set for TF32; one
     callable per config."""
-    return in_float32(functools.partial(offline_chunk_step, config=_offline_config(config)))
+    return in_float32(functools.partial(one_stream, config=config, form="offline"))
 
 
 @functools.lru_cache(maxsize=32)
 def make_offline_batched_fn(config: StabilizerConfig) -> Callable:
     """(carry of S streams, frames (S, K, Hf, Wf, C)) -> (carry, (outputs
-    (S, K, Hf, Wf, C), valid (S, K))): the chunk over streams, with the JAX
-    function's warp arguments (``offline.py::make_offline_batched_fn``): LK
-    and ECC without the projective fallback, and the output warp without it
-    in every mode (the bounded modes never take it, the others drop it
-    here).  Requires ``config.static_mode``.  Float32 whatever the caller
-    set for TF32 (``utils/precision.py``)."""
+    (S, K, Hf, Wf, C), valid (S, K))): the chunk over streams.  Requires
+    ``config.static_mode``.  Float32 whatever the caller set for TF32
+    (``utils/precision.py``)."""
     require_static_mode(config, "make_offline_batched_fn")
-    cfg = _offline_config(config)
-    if int(cfg.static_mode) not in BOUNDED_MODES:
-        cfg = dataclasses.replace(cfg, warp_projective_fallback=False)
-    return in_float32(functools.partial(offline_batched_chunk_step, config=cfg))
+    return in_float32(functools.partial(offline_batched_chunk_step, config=config,
+                                        form="offline_batched"))
 
 
 def stabilize_clip_offline(

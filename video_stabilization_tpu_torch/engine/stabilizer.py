@@ -1,24 +1,12 @@
-"""The per-frame stabilization step and the ``Stabilizer`` wrapper.
+"""The per-frame stabilization step, its factories and ``Stabilizer``.
 
-Port of ``video_stabilization_tpu/engine/stabilizer.py``:
-
-  1. full-res BGR -> working-res gray (cv2's exact u8 gray under
-     ``reference_compat``) + pyramid
-  2. LK of the previous corners into this frame (``lk.method``)
-  3. RANSAC similarity + isotropic-scale removal -> inter-frame T (rigid),
-     or the similarity hypotheses' inliers refit by the configured motion
-     model (``models/motion_models.py``); or the motion a host estimator
-     computed (``ext_motion``)
-  4. ring updates (frames circular, transforms rolled)
-  5. smoothing homography Q
-  6. lock homography: accumulated (anchor / advance / invert) or the ORB
-     or SIFT registration lock against the captured reference, optionally
-     refined by ECC (``engine/lock.py``)
-  7. rotation split into translation and rotation locks
-  8. mode switch
-  9. translation rescale to full resolution, warp of the presentation frame
- 10. GFTT for the next frame (cv2's exact list under ``reference_compat``;
-     empty lanes for ``gftt.selection="host"``, which the host fills)
+Port of ``video_stabilization_tpu/engine/stabilizer.py``.  The streaming
+step is the engine's one body (``engine/offline.py::
+offline_batched_chunk_step``) in its streaming form, on one stream and one
+frame; the stages are listed there: gray and pyramid, GFTT for the next
+frame, LK and the inter-frame fit (or the motion a host estimator computed,
+``ext_motion``), the ring, smoothing, the lock, the rotation split, the mode
+switch and the output warp.
 
 The mode is a host ``int`` (``Stabilizer`` keeps it, the carry mirrors it as
 a tensor), so branching on it never waits for the device.  The step
@@ -47,179 +35,19 @@ import numpy as np
 import torch
 
 from video_stabilization_tpu_torch.config import StabilizationMode, StabilizerConfig
-from video_stabilization_tpu_torch.engine.lock import orb_lock, sift_lock
-from video_stabilization_tpu_torch.engine.smoothing import smoothing_homography
+from video_stabilization_tpu_torch.engine.offline import (
+    REGISTRATION_MODES,
+    corner_config,
+    one_stream,
+    step_constants,
+    working_gray,
+)
 from video_stabilization_tpu_torch.engine.state import EngineCarry, init_carry, map_carry
 from video_stabilization_tpu_torch.engine.step_graph import GraphCache, StepGraph
-from video_stabilization_tpu_torch.motion.homography import (
-    HomographyParams,
-    compose_homography,
-    decompose_homography,
-    remove_isotropic_scale,
-)
-from video_stabilization_tpu_torch.models.motion_models import MotionModel, fit_motion
-from video_stabilization_tpu_torch.motion.ransac import estimate_similarity_ransac
-from video_stabilization_tpu_torch.ops.affine_warp import affine_envelope_ok, warp_affine
-from video_stabilization_tpu_torch.ops.gftt import Corners, good_features_to_track
-from video_stabilization_tpu_torch.ops.image import (
-    bgr_to_gray, gray_u8_cv2exact, resize_bilinear)
 from video_stabilization_tpu_torch.ops.lk import lk_track
 from video_stabilization_tpu_torch.ops.pyramid import build_pyramid
-from video_stabilization_tpu_torch.ops.warp import _inv3x3, warp_perspective
 from video_stabilization_tpu_torch.utils import prng
 from video_stabilization_tpu_torch.utils.stage_profile import stage
-
-ACCUM_MODES = (
-    StabilizationMode.ACCUMULATED_FULL_LOCK,
-    StabilizationMode.TRANSLATION_LOCK,
-    StabilizationMode.ROTATION_LOCK,
-)
-
-
-
-def accumulating_modes(config: StabilizerConfig) -> tuple:
-    """The modes that anchor and advance the accumulated lock: under
-    ``reference_compat`` only ACCUMULATED_FULL_LOCK, since the reference's
-    translation and rotation locks are no-ops (H_lock identity,
-    src/stabilizer.cpp:790)."""
-    if config.reference_compat:
-        return (StabilizationMode.ACCUMULATED_FULL_LOCK,)
-    return ACCUM_MODES
-
-
-def working_gray(frames: torch.Tensor, config: StabilizerConfig) -> torch.Tensor:
-    """(..., Hf, Wf, C) u8 frames -> (..., wh, ww) f32 working gray: cv2's
-    exact u8 gray under ``reference_compat`` (a ±1 level perturbs the
-    referee's corner list), else resize then gray, the reference's order."""
-    wh, ww = config.working_size
-    if config.reference_compat:
-        return gray_u8_cv2exact(frames, wh, ww)
-    return bgr_to_gray(resize_bilinear(frames.float(), wh, ww))
-
-
-def corner_config(config: StabilizerConfig):
-    """The next frame's corner detector: cv2's exact list under
-    ``reference_compat`` (corner-set selection dominates the drift against
-    the reference), else ``config.gftt``."""
-    if config.reference_compat and config.gftt.selection != "cv2exact":
-        return dataclasses.replace(config.gftt, selection="cv2exact")
-    return config.gftt
-
-
-def next_corners(gray: torch.Tensor, config: StabilizerConfig) -> Corners:
-    """The streaming step's corners for the next frame on (..., wh, ww)
-    grays: with ``gftt.selection="host"`` empty lanes (the host injects its
-    element-exact list after the step, ``Stabilizer.stabilize_frame``),
-    else :func:`corner_config`'s detector."""
-    if config.gftt.selection == "host":
-        lead = gray.shape[:-2]
-        nf = config.gftt.max_features
-        zeros = torch.zeros(lead + (nf,), dtype=torch.float32, device=gray.device)
-        return Corners(points=torch.zeros(lead + (nf, 2), dtype=torch.float32,
-                                          device=gray.device),
-                       response=zeros, mask=torch.zeros_like(zeros, dtype=torch.bool))
-    return good_features_to_track(gray, corner_config(config))
-
-
-def _rotation_about(theta: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
-    """Rotation by -theta (y-down) about ``center`` as a 3x3 homography
-    (cv::getRotationMatrix2D)."""
-    zero2 = torch.zeros(theta.shape + (2,), dtype=theta.dtype, device=theta.device)
-    p = HomographyParams(scale=torch.ones_like(theta), theta=-theta,
-                         k=torch.ones_like(theta), delta=torch.zeros_like(theta),
-                         t=zero2, v=zero2)
-    return compose_homography(p, center)
-
-
-def _fit_inter_frame(src, dst, status, key, config: StabilizerConfig, center):
-    """RANSAC fit of the tracked correspondences -> (result, inter-frame T).
-    Rigid: the similarity fit, then removal of the isotropic scale about the
-    image centre.  Other models: similarity hypotheses select the inliers,
-    the configured model refits on them (LO-RANSAC)."""
-    if config.ransac.motion_model == "rigid":
-        ransac = estimate_similarity_ransac(src, dst, status, key, config.ransac)
-        t_rigid, _ = remove_isotropic_scale(ransac.h, center)
-        return ransac, t_rigid
-    model = MotionModel(config.ransac.motion_model)
-    ransac = estimate_similarity_ransac(
-        src, dst, status, key, config.ransac,
-        refit_fn=lambda s, d, w: fit_motion(model, s, d, w, center))
-    return ransac, ransac.h
-
-
-def frame_keys(base_key: torch.Tensor, n: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(k_ransac, k_lock) of frame ``n``: ``fold_in(key, 2n)`` and
-    ``fold_in(key, 2n + 1)``, as in the JAX package."""
-    return prng.fold_in(base_key, n * 2), prng.fold_in(base_key, n * 2 + 1)
-
-
-def stabilized_outputs(mode, h_smooth, h_lock, pres_frames, frames, is_first, center,
-                       scale_factor, projective_fallback: bool, homography: bool = False):
-    """The step's tail over any leading dims (none for the streaming step,
-    (S, K) for a chunk of S streams): rotation split of ``h_lock``, the
-    mode's stabilizing homography, its rescale to full resolution, and one
-    batched warp of all (..., Hf, Wf, C) presentation frames, each with the
-    border 0.5 · its mean colour; where ``is_first``, the new frame in
-    ``frames`` passes through unwarped.  With ``homography`` (the homography
-    motion model) the projective row rescales too and the frames go through
-    ``warp_perspective``, which has no envelope.  ``mode`` is a host int,
-    or an int32 tensor that broadcasts against the leading dims (the (S, 1)
-    modes of a batch of streams in mixed modes, on the device): each item
-    then takes its own mode's homography by ``torch.where``.  Returns
-    (h_stab (..., 3, 3), outputs (..., Hf, Wf, C) u8, (...) bool: ``h_stab``
-    outside the warp kernel's envelope)."""
-    eye = torch.eye(3, dtype=torch.float32, device=h_lock.device)
-    with stage("rotation_split"):
-        lock_params, lock_ok = decompose_homography(h_lock, center)
-    h_lock = torch.where(lock_ok[..., None, None], h_lock, eye)
-
-    def translation_lock():
-        return torch.matmul(_rotation_about(lock_params.theta, center), h_lock)
-
-    def rotation_lock():
-        return _rotation_about(-lock_params.theta, center)
-
-    if isinstance(mode, torch.Tensor):      # each item its own mode, on the device
-        m = mode[..., None, None]
-        h_stab = torch.where(
-            m == int(StabilizationMode.GLOBAL_SMOOTHING), h_smooth, torch.where(
-                m == int(StabilizationMode.TRANSLATION_LOCK), translation_lock(), torch.where(
-                    m == int(StabilizationMode.ROTATION_LOCK), rotation_lock(), h_lock)))
-    else:
-        h_stab = {StabilizationMode.GLOBAL_SMOOTHING: lambda: h_smooth,
-                  StabilizationMode.TRANSLATION_LOCK: translation_lock,
-                  StabilizationMode.ROTATION_LOCK: rotation_lock,
-                  }.get(StabilizationMode(int(mode)), lambda: h_lock)()
-
-    # the affine block is scale-invariant: the translation divides by the
-    # factor, a projective row multiplies by it
-    h_scaled = h_stab.clone()
-    h_scaled[..., 0:2, 2] = h_stab[..., 0:2, 2] / scale_factor
-    with stage("warp"):
-        pres = pres_frames.reshape((-1,) + pres_frames.shape[-3:]).float()
-        border = 0.5 * pres.mean(dim=(1, 2))
-        if homography:
-            h_scaled[..., 2, 0:2] = h_scaled[..., 2, 0:2] * scale_factor
-            outside = torch.zeros(h_scaled.shape[:-2], dtype=torch.bool, device=h_scaled.device)
-            out = warp_perspective(pres, h_scaled.reshape(-1, 3, 3), None, border)
-        else:
-            outside = ~affine_envelope_ok(h_scaled)
-            out = warp_affine(pres, h_scaled.reshape(-1, 3, 3), border_value=border,
-                              projective_fallback=projective_fallback)
-        warped_u8 = torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
-    outputs = torch.where(is_first[..., None, None, None], frames.to(torch.uint8),
-                          warped_u8.reshape(pres_frames.shape))
-    return h_stab, outputs, outside
-
-
-def step_constants(config: StabilizerConfig, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(center (2,) f32, scale_factor () f32) of ``config`` on ``device``:
-    the working image's centre and the working-to-full scale.  They go up
-    without a blocking copy (a pageable source is staged by the CUDA
-    runtime before the call returns)."""
-    wh, ww = config.working_size
-    return (torch.tensor([ww / 2.0, wh / 2.0]).to(device, non_blocking=True),
-            torch.tensor(config.scale_factor).to(device, non_blocking=True))
 
 
 def stabilize_step(
@@ -244,124 +72,16 @@ def stabilize_step(
     ``center`` and ``scale_factor``: the working image's (2,) f32 centre and
     the () f32 working-to-full scale on the frame's device, as
     :func:`step_constants` makes them once; without them the step uploads
-    both from the host, which a CUDA graph's capture refuses."""
-    if config.static_mode is not None:
-        mode = int(config.static_mode)
+    both from the host, which a CUDA graph's capture refuses.
 
-    dev = frame.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    w = config.total_window
-    future = config.future_frames
-    if center is None or scale_factor is None:
-        center, scale_factor = step_constants(config, dev)
-    eye = torch.eye(3, **f32)
-    k_ransac, k_lock = frame_keys(carry.key, carry.n)
-
-    # 1. working-res gray + pyramid
-    with stage("gray"):
-        gray = working_gray(frame, config)
-    with stage("pyramid"):
-        pyr = build_pyramid(gray, config.lk.pyramid_levels)
-
-    # 2-3. track + inter-frame motion, unless a host estimator gave it
-    if ext_motion is None:
-        with stage("lk_track"):
-            tracked = lk_track(carry.pyr_prev, pyr, carry.corners_prev, carry.corners_mask,
-                               config.lk)
-        with stage("inter_frame_fit"):
-            ransac, t_rigid = _fit_inter_frame(carry.corners_prev, tracked.points,
-                                               tracked.status, k_ransac, config, center)
-        fit_valid, n_inliers = ransac.valid, ransac.num_inliers
-    else:
-        t_rigid, fit_valid, n_inliers = ext_motion
-    is_first = carry.n == 0
-    have_prev = carry.n >= 1
-    t_new = torch.where(have_prev & fit_valid, t_rigid, eye)
-
-    # 4. ring updates
-    n_after = carry.n + 1
-    slot = torch.remainder(carry.n, w).long().view(1)
-    frames = carry.frames
-    frames.index_copy_(0, slot, frame.to(torch.uint8)[None])
-    pushed_tr = torch.cat([carry.transforms[1:], t_new[None]], 0)
-    pushed_tv = torch.cat([carry.tvalid[1:], torch.ones(1, dtype=torch.bool, device=dev)])
-    transforms = torch.where(have_prev, pushed_tr, carry.transforms)
-    tvalid = torch.where(have_prev, pushed_tv, carry.tvalid)
-
-    # window geometry
-    length = torch.clamp(n_after, max=w)
-    num_tr = length - 1
-    zero_i = torch.zeros_like(length)
-    pres = torch.where(length > future, length - future - 1, zero_i)
-    pres_abs = torch.where(n_after > future, n_after - future - 1, zero_i)
-    pres_slot = torch.remainder(pres_abs, w).long().view(1)
-    pres_frame = frames.index_select(0, pres_slot)[0].float()
-
-    # 5. smoothing
-    with stage("smoothing"):
-        h_smooth = smoothing_homography(transforms, tvalid, pres, num_tr,
-                                        config.reference_compat)
-
-    # 6. lock: a registration lock (ORB or SIFT), or the accumulated lock
-    # (anchor on entry, then advance by the transform into the new
-    # presentation frame)
-    orb_ref, sift_ref, lock_prev_h = carry.orb_ref, carry.sift_ref, carry.lock_prev_h
-    lock_matches = torch.zeros((), dtype=torch.int32, device=dev)
-    accum_h = eye
-    accum_active = torch.zeros((), dtype=torch.bool, device=dev)
-    if mode == StabilizationMode.ORB_FULL_LOCK:
-        with stage("orb_lock"):
-            res = orb_lock(pres_frame, carry.orb_ref, carry.lock_prev_h, k_lock, config)
-        h_lock, orb_ref, lock_prev_h, lock_matches = (res.h_lock, res.ref, res.prev_h,
-                                                      res.n_matches)
-    elif mode == StabilizationMode.SIFT_FULL_LOCK:
-        with stage("sift_lock"):
-            res = sift_lock(pres_frame, carry.sift_ref, carry.lock_prev_h, k_lock, config)
-        h_lock, sift_ref, lock_prev_h, lock_matches = (res.h_lock, res.ref, res.prev_h,
-                                                       res.n_matches)
-    else:
-        if mode in accumulating_modes(config):
-            advanced = (n_after - 1 - future) >= 1
-            tr_slot = ((transforms.shape[0] - num_tr) + pres - 1).clamp(0, w - 2)
-            t_pres = transforms.index_select(0, tr_slot.long().view(1))[0]
-            advanced_h = torch.where(advanced, torch.matmul(t_pres, carry.accum_h),
-                                     carry.accum_h)
-            accum_h = torch.where(carry.accum_active, advanced_h, eye)
-            accum_active = torch.ones((), dtype=torch.bool, device=dev)
-        h_lock = _inv3x3(accum_h)
-
-    # 7-9. rotation split, mode switch, rescale and warp
-    h_stabilize, output, outside = stabilized_outputs(
-        mode, h_smooth, h_lock, pres_frame, frame, is_first, center, scale_factor,
-        config.warp_projective_fallback, config.ransac.motion_model == "homography")
-    env_viol = carry.envelope_violations + outside.to(torch.int32)
-    out_valid = torch.ones((), dtype=torch.bool, device=dev)
-
-    # 10. features for the next frame
-    with stage("gftt"):
-        corners = next_corners(gray, config)
-
-    new_carry = EngineCarry(
-        frames=frames,
-        transforms=transforms,
-        tvalid=tvalid,
-        pyr_prev=pyr,
-        corners_prev=corners.points,
-        corners_mask=corners.mask,
-        n=n_after,
-        mode=carry.mode,
-        accum_h=accum_h,
-        accum_active=accum_active,
-        orb_ref=orb_ref,
-        sift_ref=sift_ref,
-        lock_prev_h=lock_prev_h,
-        last_h=h_stabilize,
-        last_inliers=n_inliers,
-        last_lock_matches=lock_matches,
-        envelope_violations=env_viol,
-        key=carry.key,
-    )
-    return new_carry, (output, out_valid)
+    It is the body in the form "step" (``engine/offline.py::FORMS``) on one
+    stream and one frame."""
+    if ext_motion is not None:
+        ext_motion = tuple(x[None, None] for x in ext_motion)
+    carry, (outputs, valid) = one_stream(carry, frame[None], config, "step", modes=[mode],
+                                         ext_motion=ext_motion, center=center,
+                                         scale_factor=scale_factor)
+    return carry, (outputs[0], valid[0])
 
 
 def host_mode(carry: EngineCarry, config: StabilizerConfig) -> int:
@@ -438,8 +158,6 @@ def make_step_ext_fn(config: StabilizerConfig) -> Callable:
 
     return step_ext
 
-
-REGISTRATION_MODES = (StabilizationMode.ORB_FULL_LOCK, StabilizationMode.SIFT_FULL_LOCK)
 
 # what Stabilizer.stabilize_frame did since the last reset_step_counters():
 # its calls, the calls that replayed a CUDA graph of the step, and the

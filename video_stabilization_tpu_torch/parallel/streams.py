@@ -5,13 +5,14 @@ Port of ``video_stabilization_tpu/parallel/streams.py``.  The JAX package
 vmaps the per-frame step over streams and shards the stream axis over a
 device mesh.  The port writes the stream dimension out: a carry of S
 streams has a leading (S,) on every tensor (:func:`init_batched_carry`), and
-the batched step is the offline chunk body
-(``engine/offline.py::offline_batched_chunk_step``) at K = 1, whose stages
+the batched step is the engine's one body
+(``engine/offline.py::offline_batched_chunk_step``) at K = 1 in the forms
+"batched" and "batched_mixed" of ``engine/offline.py::FORMS``, whose stages
 run as one batch over the streams: one warp launch for each of dense LK's
-four warps and one for the output, whatever S.  At K = 1 that body is the
-streaming step, so each stream keeps its own ``fold_in`` keys, ring slots
-and window.  On a CUDA card a batch of one is the streaming step bit for
-bit, while a batch of several rounds differently in dense LK's band
+four warps and one for the output, whatever S.  The streaming step is the
+same body on one stream, so each stream keeps its own ``fold_in`` keys,
+ring slots and window.  On a CUDA card a batch of one is the streaming step
+bit for bit, while a batch of several rounds differently in dense LK's band
 products (cuBLAS) and RANSAC's row sums (the CUDA reductions), whose
 summation order follows the batch's shape.
 
@@ -23,9 +24,7 @@ once (the scan once for all its frames; over a mesh once per slot, every
 slot's before any slot is enqueued), runs the shared stages once over all
 S streams, the registration lock only for the ORB and SIFT streams, and
 selects each stream's lock and stabilizing homography on the device
-(``engine/offline.py``).  The output warp then keeps
-``warp_projective_fallback`` for every stream, as JAX keeps it when no mode
-is pinned.  The offline chunk over streams (``make_offline_batched_fn``,
+(``engine/offline.py``).  The offline chunk over streams (``make_offline_batched_fn``,
 :func:`make_sharded_offline_fn`) requires ``config.static_mode``, as the
 JAX package's does.
 
@@ -55,7 +54,6 @@ import torch
 
 from video_stabilization_tpu_torch.config import StabilizerConfig
 from video_stabilization_tpu_torch.engine.offline import (
-    BOUNDED_MODES,
     make_offline_batched_fn,
     offline_batched_chunk_step,
 )
@@ -101,21 +99,6 @@ def _carry_of_keys(config: StabilizerConfig, mode: int, keys: torch.Tensor,
     return dataclasses.replace(carry, key=keys.to(device))
 
 
-def _batched_config(config: StabilizerConfig) -> StabilizerConfig:
-    """The batched step's warp arguments, as the JAX package's: the output
-    warp without the projective fallback where the correction is bounded by
-    construction (``engine.offline.BOUNDED_MODES``), with ``warp_projective_fallback``
-    elsewhere; LK's warps, which remove the current global-motion estimate
-    first, without it."""
-    bounded = (config.static_mode is not None
-               and int(config.static_mode) in BOUNDED_MODES)
-    return dataclasses.replace(
-        config,
-        warp_projective_fallback=config.warp_projective_fallback and not bounded,
-        lk=dataclasses.replace(config.lk, warp_fallback=False),
-    )
-
-
 @functools.lru_cache(maxsize=32)
 def make_batched_step_fn(config: StabilizerConfig) -> Callable:
     """(carry of S streams, frames (S, Hf, Wf, C)) -> (carry, (outputs (S,
@@ -125,14 +108,14 @@ def make_batched_step_fn(config: StabilizerConfig) -> Callable:
     ``config.static_mode`` each stream runs its own ``carry.mode``, read
     once per call, or given as ``modes`` (host ints, one per stream) by a
     caller that has read it.  Float32 whatever the caller set for TF32."""
-    cfg = _batched_config(config)
+    form = "batched" if config.static_mode is not None else "batched_mixed"
 
     @in_float32
     def step(carry: EngineCarry, frames: torch.Tensor, modes=None):
-        if cfg.static_mode is None and modes is None:
+        if config.static_mode is None and modes is None:
             modes = carry.mode.tolist()     # the call's one host read
         carry, (outputs, valid) = offline_batched_chunk_step(
-            carry, frames[:, None], cfg, streaming=True, modes=modes)
+            carry, frames[:, None], config, form=form, modes=modes)
         return carry, (outputs[:, 0], valid[:, 0])
 
     return step

@@ -184,9 +184,11 @@ def serve_files(paths: Sequence[str], output_dir: Optional[str], mode,
     per-stream stabilized Y4M files ``stabilized_<name>`` to ``output_dir``
     (skipped when None).  ``devices`` (default every CUDA card; ``["cpu"]``
     runs on the CPU) gives the mesh, of which :func:`pick_serving_devices`
-    takes the slots the stream count divides over.  Returns
-    (frames_done_per_stream, wall_seconds); :data:`last_run` holds the
-    run's split."""
+    takes the slots the stream count divides over.  ``mode``: a
+    ``StabilizationMode`` or its name, in the app CLI's spelling
+    (``cli/args.py::MODE_NAMES``), in serve's (the same without "-lock") or
+    as the enum member's.  Returns (frames_done_per_stream, wall_seconds);
+    :data:`last_run` holds the run's split."""
     from video_stabilization_tpu_torch.config import StabilizationMode
     from video_stabilization_tpu_torch.io.native import NativeY4MReader
     from video_stabilization_tpu_torch.io.video import VideoWriter
@@ -212,11 +214,12 @@ def serve_files(paths: Sequence[str], output_dir: Optional[str], mode,
         f"[{', '.join(map(str, mesh))}], chunk {chunk}")
 
     if isinstance(mode, str):
-        # both the CLI spellings ("smoothing", "orb-lock", ...) and the enum
-        # member names ("GLOBAL_SMOOTHING", ...)
+        # the app's CLI spellings ("orb-lock"), serve's (the same without
+        # "-lock": "orb") and the enum member names ("ORB_FULL_LOCK")
         from video_stabilization_tpu_torch.cli.args import MODE_NAMES
 
-        mode = StabilizationMode[MODE_NAMES.get(mode, mode.upper())]
+        mode = StabilizationMode[MODE_NAMES.get(mode) or MODE_NAMES.get(f"{mode}-lock")
+                                 or mode.upper()]
     else:
         mode = StabilizationMode(mode)
     if config is not None:                  # test/tuned override
@@ -394,12 +397,6 @@ def main(argv=None, device=None, keep_inputs: bool = False):
                     help="WxH of --simulator streams")
     args = ap.parse_args(argv)
 
-    mode_map = {"smoothing": "GLOBAL_SMOOTHING",
-                "accumulated": "ACCUMULATED_FULL_LOCK",
-                "orb": "ORB_FULL_LOCK", "sift": "SIFT_FULL_LOCK",
-                "translation": "TRANSLATION_LOCK",
-                "rotation": "ROTATION_LOCK"}
-
     from video_stabilization_tpu_torch.parallel import make_stream_mesh
 
     if isinstance(device, (str, torch.device)):
@@ -418,7 +415,7 @@ def main(argv=None, device=None, keep_inputs: bool = False):
     past = max(1, int(round(args.past_window * args.fps)))
     future = max(0, int(round(args.future_window * args.fps)))
     try:
-        serve_files(paths, args.output_dir, mode_map[args.mode],
+        serve_files(paths, args.output_dir, args.mode,
                     working_height=args.working_height, past=past, future=future,
                     chunk=args.chunk, max_frames=args.frames, devices=mesh)
     finally:

@@ -43,7 +43,8 @@ import time
 import numpy as np
 import torch
 
-HAND_WRITTEN = ("fast_levels_kernel", "affine_warp_kernel")
+HAND_WRITTEN = ("fast_levels_kernel", "affine_warp_kernel", "y4m_c420_kernel",
+                "y4m_c444_kernel")
 # the one switch of every stage range: set by main() around the profiled
 # frames only, and by whatever else profiles the program
 enabled = False
@@ -77,22 +78,20 @@ def _stage_device_events(prof) -> dict:
 
 
 # the reference's printTimings taxonomy (src/stabilizer.cpp:982-1009) over
-# the top-level stages of the streaming step and the chunk body; the stages
-# nested in them (lock_detect, orb_detect, match, ecc, ...) are not listed,
-# so nothing counts twice
+# the top-level stages of the step body and of the referee's track prefix
+# (``engine/stabilizer.py::make_track_fn``: gray, pyramid, lk_track); the
+# stages nested in them (lock_detect, orb_detect, match, ecc, ...) are not
+# listed, so nothing counts twice
 REFERENCE_TAXONOMY = {
     "gftt": "goodFeaturesToTrack",
     "lk_track": "calcOpticalFlowPyrLK",
     "lk": "calcOpticalFlowPyrLK",
-    "inter_frame_fit": "estimateAffinePartial2D",
     "fit": "estimateAffinePartial2D",
     "warp": "warpPerspective",
     "gray": "resize+cvtColor+pyramid",
     "pyramid": "resize+cvtColor+pyramid",
     "gray_pyramid": "resize+cvtColor+pyramid",
     "smoothing": "smoothing window",
-    "orb_lock": "lock transform",
-    "sift_lock": "lock transform",
     "lock": "lock transform",
     "rotation_split": "rotation split",
 }
