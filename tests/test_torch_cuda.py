@@ -5,7 +5,9 @@ warp kernel against the same on the plain warp; and each configuration
 the port once refused (the motion models, the per-point trackers, the
 referee) on the card with its warp launches counted, the step's host
 syncs with the non-rigid fits, the exact u8 gray, cv2's greedy corner
-fixpoint and the trail compositor against the CPU.  Marked ``gpu``:
+fixpoint and the trail compositor against the CPU; the live step and the
+stream-batched chunk replayed as CUDA graphs against the same run eagerly.
+Marked ``gpu``:
 skipped without a CUDA card (run on one with
 ``python -m pytest tests/test_torch_cuda.py -m gpu -q --noconftest``)."""
 
@@ -814,3 +816,99 @@ def test_step_replay_clip_counts_and_syncs(dev):
     calls = stab_mod.step_counters["calls"] - 10      # the eager clip's calls
     assert stab_mod.step_counters["captures"] == 1
     assert stab_mod.step_counters["replays"] >= calls - 2
+
+
+def chunk_config():
+    from video_stabilization_tpu_torch.config import StabilizationMode, StabilizerConfig
+
+    return StabilizerConfig(past_frames=4, future_frames=2, working_height=120,
+                            frame_height=240, frame_width=320,
+                            static_mode=int(StabilizationMode.GLOBAL_SMOOTHING))
+
+
+@pytest.mark.parametrize("cards", ["one slot", "one card twice", "two cards"])
+def test_chunk_replay_equals_eager(dev, cards):
+    """The stream-batched chunk over a mesh (one slot; card 0 twice; cards 0
+    and 1) replays a CUDA graph per slot from its second call, and over 5
+    chunks of 3, past the window's fill, equals each slot's streams through
+    the eager body bit for bit, outputs, ``valid`` and carry; 5 warp
+    launches a slot and call; a replay makes no host sync; a call's outputs
+    survive the next; the graphs go with their slot's ring."""
+    import gc
+
+    from video_stabilization_tpu_torch.engine import map_carry, offline
+    from video_stabilization_tpu_torch.parallel import (
+        Sharded, init_batched_carry, make_sharded_offline_fn, make_stream_mesh, shard_carry)
+    from video_stabilization_tpu_torch.utils import prng
+
+    if cards == "two cards" and torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two CUDA cards, found {torch.cuda.device_count()}")
+    mesh = make_stream_mesh({"one slot": [dev], "one card twice": [dev, dev],
+                             "two cards": ["cuda:0", "cuda:1"]}[cards])
+    cfg = chunk_config()
+    n = len(mesh)
+    clips = torch.stack([small_clip(dev, 15, seed=s) for s in range(2 * n)])
+    parts = [clips[2 * d:2 * d + 2].to(d_) for d, d_ in enumerate(mesh)]
+    sharded = make_sharded_offline_fn(cfg, mesh)
+    fn = offline.make_offline_batched_fn(cfg)
+    carry = shard_carry(init_batched_carry(cfg, 2 * n, int(cfg.static_mode), prng.key(3), dev),
+                        mesh)
+    slots = carry.parts if n > 1 else (carry,)
+    alone = [map_carry(torch.clone, c) for c in slots]
+    offline.reset_chunk_counters()
+    kept = []
+    for c in range(5):
+        frames = Sharded(tuple(p[:, 3 * c:3 * c + 3] for p in parts))
+        before = aw.launches
+        if c == 4:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            carry, (out, valid) = sharded(carry, frames)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert aw.launches - before == 5 * n
+        outs = out.parts if n > 1 else (out,)
+        valids = valid.parts if n > 1 else (valid,)
+        slots = carry.parts if n > 1 else (carry,)
+        for d in range(n):
+            alone[d], (want, want_valid) = fn.body(alone[d], frames.parts[d])
+            assert outs[d].device == mesh[d]
+            assert torch.equal(outs[d], want) and torch.equal(valids[d], want_valid), (c, d)
+            assert carries_equal(slots[d], alone[d]), (c, d)
+        kept.append([(o, o.clone()) for o in outs])
+    assert offline.chunk_counters == {"calls": 5 * n, "replays": 4 * n, "captures": n}
+    for c, pairs in enumerate(kept):
+        for o, snapshot in pairs:
+            assert torch.equal(o, snapshot), f"chunk {c} overwritten"
+    rings = {id(c.frames) for c in slots}
+    assert rings <= set(fn._rings)
+    del carry, slots, kept, out, outs, valid, valids
+    gc.collect()
+    assert not rings & set(fn._rings)
+
+
+def test_serve_writes_the_same_bytes_replayed(dev, tmp_path, monkeypatch):
+    """``serve_files`` on the card writes the same bytes with the chunk
+    replayed as a CUDA graph (3 of its 4 calls) as with the chunk eager."""
+    import os
+
+    from video_stabilization_tpu_torch import serve
+    from video_stabilization_tpu_torch.engine import offline
+
+    cfg = chunk_config()
+    paths = serve._render_sim_streams(4, 16, 240, 320, str(tmp_path), dev, log=lambda *a: None)
+    written = {}
+    for how in ("replayed", "eager"):
+        if how == "eager":
+            monkeypatch.setattr(offline, "step_replays", lambda config, device: False)
+        offline.make_offline_batched_fn.cache_clear()
+        offline.reset_chunk_counters()
+        done, _ = serve.serve_files(paths, str(tmp_path / how), "smoothing", chunk=4,
+                                    config=cfg, devices=[dev], log=lambda *a: None)
+        assert done == 16
+        assert offline.chunk_counters["replays"] == (3 if how == "replayed" else 0)
+        written[how] = [(tmp_path / how / f"stabilized_{os.path.basename(p)}").read_bytes()
+                        for p in paths]
+    offline.make_offline_batched_fn.cache_clear()
+    assert written["replayed"] == written["eager"]

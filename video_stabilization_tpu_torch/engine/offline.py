@@ -15,7 +15,8 @@ of K frames each.  Every form is a call of it:
   - the offline chunk (:func:`offline_chunk_step`, :func:`make_offline_fn`):
     one stream, K frames;
   - the stream-batched chunk and its sharded form
-    (:func:`make_offline_batched_fn`): S streams, K frames.
+    (:func:`make_offline_batched_fn`, which replays a CUDA graph of it per
+    slot on a card): S streams, K frames.
 
 The expensive stages of frame i depend only on frames i-1 and i, so the
 body runs them for all S·K frames at once:
@@ -67,6 +68,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import weakref
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -76,6 +78,8 @@ from video_stabilization_tpu_torch.config import StabilizationMode, StabilizerCo
 from video_stabilization_tpu_torch.engine.lock import _registration_lock, detect_features
 from video_stabilization_tpu_torch.engine.smoothing import _prefix_products, smoothing_homography
 from video_stabilization_tpu_torch.engine.state import EngineCarry, map_carry
+from video_stabilization_tpu_torch.engine.step_graph import (
+    GraphCache, StepGraph, copy_carry, static_input)
 from video_stabilization_tpu_torch.models.motion_models import MotionModel, fit_motion
 from video_stabilization_tpu_torch.motion.homography import (
     HomographyParams,
@@ -169,6 +173,17 @@ def corner_config(config: StabilizerConfig):
     if config.reference_compat and config.gftt.selection != "cv2exact":
         return dataclasses.replace(config.gftt, selection="cv2exact")
     return config.gftt
+
+
+def step_replays(config: StabilizerConfig, device) -> bool:
+    """Whether a form of ``config`` on ``device`` replays as a CUDA graph
+    (``Stabilizer``'s step, the stream-batched chunk), in a mode other than
+    the registration locks: on a CUDA card, unless a stage reads the device
+    to the host, which capture refuses: the referee's host estimator
+    (``ransac.method="cv2exact"``), host GFTT and cv2's exact greedy corners
+    (``gftt.selection`` "host" or "cv2exact", or ``reference_compat``)."""
+    return (torch.device(device).type == "cuda" and config.ransac.method != "cv2exact"
+            and corner_config(config).selection not in ("host", "cv2exact"))
 
 
 def next_corners(gray: torch.Tensor, config: StabilizerConfig) -> Corners:
@@ -592,15 +607,122 @@ def make_offline_fn(config: StabilizerConfig) -> Callable:
     return in_float32(functools.partial(one_stream, config=config, form="offline"))
 
 
+# what the callables of make_offline_batched_fn did since the last
+# reset_chunk_counters(): their calls, the calls that replayed a CUDA graph
+# of the chunk, and the graphs they captured; host counts, read without a sync
+chunk_counters: dict = {}
+
+
+def reset_chunk_counters() -> None:
+    chunk_counters.clear()
+    chunk_counters.update(calls=0, replays=0, captures=0)
+
+
+reset_chunk_counters()
+
+
+class _RingGraphs:
+    """The chunk's CUDA graphs of one frame ring, by frames shape and dtype
+    (``engine/step_graph.py``): the carry they read and write, which holds
+    every tensor of the slot's carry but the ring (a placeholder stands in
+    for it, so the ring dies with the caller's last carry), and their
+    static frames."""
+
+    def __init__(self, body: Callable, config: StabilizerConfig, device):
+        self.body, self.device = body, device
+        self.graphs = GraphCache()
+        self.carry: Optional[EngineCarry] = None
+        self.inputs: dict = {}
+        self.constants = step_constants(config, device)
+
+    def __call__(self, carry: EngineCarry, frames: torch.Tensor):
+        ring = carry.frames
+        f = static_input(self.inputs, frames, self.device)
+        key = (tuple(frames.shape), frames.dtype)
+        graph = self.graphs.get(key, lambda: self._capture(carry, ring, f))
+        if graph is None:
+            return self.body(carry, frames)
+        with stage("chunk_replay"):
+            self._adopt(carry, ring)
+            outputs, valid = graph.replay()
+            result = (dataclasses.replace(self.carry, frames=ring),
+                      (outputs.clone(), valid.clone()))
+        chunk_counters["replays"] += 1
+        return result
+
+    def _adopt(self, carry: EngineCarry, ring: torch.Tensor) -> EngineCarry:
+        """The graphs' carry with ``ring``: at first a copy of ``carry``,
+        later the same tensors refilled from ``carry`` where it is not
+        theirs (an eager call's, or a carry put in the slot's place)."""
+        if self.carry is None:
+            self.carry = map_carry(torch.clone, dataclasses.replace(carry, frames=ring[:0]))
+        mine = dataclasses.replace(self.carry, frames=ring)
+        copy_carry(mine, carry)
+        return mine
+
+    def _capture(self, carry: EngineCarry, ring: torch.Tensor, f: torch.Tensor) -> StepGraph:
+        """The chunk on the static frames ``f``, captured: it reads the
+        graphs' carry and writes its next carry back into it."""
+        mine = self._adopt(carry, ring)
+        center, scale_factor = self.constants
+
+        def chunk():
+            new, (outputs, valid) = self.body(mine, f, center=center,
+                                              scale_factor=scale_factor)
+            copy_carry(mine, new)
+            return outputs, valid
+
+        chunk_counters["captures"] += 1
+        return StepGraph(chunk, self.device)
+
+
+class _ChunkReplay:
+    """The callable of :func:`make_offline_batched_fn`."""
+
+    def __init__(self, config: StabilizerConfig):
+        self.config = config
+        self.body = in_float32(functools.partial(offline_batched_chunk_step, config=config,
+                                                 form="offline_batched"))
+        self.pinned = StabilizationMode(int(config.static_mode))
+        self._rings: dict = {}      # id(ring) -> _RingGraphs, dropped with the ring
+
+    def __call__(self, carry: EngineCarry, frames: torch.Tensor, modes=None):
+        chunk_counters["calls"] += 1
+        ring = carry.frames
+        if (self.pinned in REGISTRATION_MODES or frames.device != ring.device
+                or not step_replays(self.config, ring.device)):
+            return self.body(carry, frames, modes=modes)
+        graphs = self._rings.get(id(ring))
+        if graphs is None:
+            graphs = self._rings[id(ring)] = _RingGraphs(self.body, self.config, ring.device)
+            weakref.finalize(ring, self._rings.pop, id(ring), None)
+        return graphs(carry, frames)
+
+
 @functools.lru_cache(maxsize=32)
 def make_offline_batched_fn(config: StabilizerConfig) -> Callable:
     """(carry of S streams, frames (S, K, Hf, Wf, C)) -> (carry, (outputs
     (S, K, Hf, Wf, C), valid (S, K))): the chunk over streams.  Requires
     ``config.static_mode``.  Float32 whatever the caller set for TF32
-    (``utils/precision.py``)."""
+    (``utils/precision.py``).
+
+    Where :func:`step_replays` holds, outside the registration locks, the
+    chunk replays a CUDA graph of the body (``engine/step_graph.py``), one
+    per frame ring and frames shape and dtype: a carry's ring is its slot's
+    (the body writes it in place, every carry of the slot shares it), so
+    each slot of a mesh, and each stream group on one card, has graphs of
+    its own, and they go when the ring goes.  A key's first call runs
+    eagerly, its second captures; each replay copies ``frames`` into the
+    graph's input, runs under ``chunk_replay`` and returns fresh outputs
+    and ``valid``.  The carry it returns is the graph's own, its tensors
+    overwritten by the next replay of the slot, so a carry read before a
+    call is no snapshot of it after the call (its ring never was); a carry
+    that is not the graph's, but shares its ring (an eager call's, or one
+    put in its place), is copied in first.  :data:`chunk_counters` counts
+    the calls, replays and captures.  ``body`` is the chunk run eagerly,
+    for stage profiles (no stage range opens inside a replay)."""
     require_static_mode(config, "make_offline_batched_fn")
-    return in_float32(functools.partial(offline_batched_chunk_step, config=config,
-                                        form="offline_batched"))
+    return _ChunkReplay(config)
 
 
 def stabilize_clip_offline(

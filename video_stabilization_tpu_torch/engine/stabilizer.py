@@ -37,13 +37,14 @@ import torch
 from video_stabilization_tpu_torch.config import StabilizationMode, StabilizerConfig
 from video_stabilization_tpu_torch.engine.offline import (
     REGISTRATION_MODES,
-    corner_config,
     one_stream,
     step_constants,
+    step_replays,
     working_gray,
 )
 from video_stabilization_tpu_torch.engine.state import EngineCarry, init_carry, map_carry
-from video_stabilization_tpu_torch.engine.step_graph import GraphCache, StepGraph
+from video_stabilization_tpu_torch.engine.step_graph import (
+    GraphCache, StepGraph, copy_carry, static_input)
 from video_stabilization_tpu_torch.ops.lk import lk_track
 from video_stabilization_tpu_torch.ops.pyramid import build_pyramid
 from video_stabilization_tpu_torch.utils import prng
@@ -173,26 +174,10 @@ def reset_step_counters() -> None:
 reset_step_counters()
 
 
-def step_replays(config: StabilizerConfig, device) -> bool:
-    """Whether ``Stabilizer`` replays the step of ``config`` on ``device``
-    as a CUDA graph (in every mode but the registration locks): on a CUDA
-    card, unless a stage reads the device to the host, which capture
-    refuses: the referee's host estimator (``ransac.method="cv2exact"``),
-    host GFTT and cv2's exact greedy corners (``gftt.selection`` "host" or
-    "cv2exact", or ``reference_compat``)."""
-    return (torch.device(device).type == "cuda" and config.ransac.method != "cv2exact"
-            and corner_config(config).selection not in ("host", "cv2exact"))
-
-
 def _as_tensor(frame) -> torch.Tensor:
     if isinstance(frame, np.ndarray):
         return torch.from_numpy(np.require(frame, requirements=("C", "W")))
     return frame
-
-
-def _copy_carry(dst: EngineCarry, src: EngineCarry) -> None:
-    """Copy each tensor of ``src`` into ``dst``'s, but those they share."""
-    map_carry(lambda d, s: d if s is d else d.copy_(s), dst, src)
 
 
 class Stabilizer:
@@ -300,7 +285,7 @@ class Stabilizer:
         if self._graphs is not None and mode not in REGISTRATION_MODES:
             key = (mode, tuple(src.shape), src.dtype)
         with stage("input_h2d"):
-            f = self._static_input(src) if key else src.to(self.device)
+            f = static_input(self._inputs, src, self.device) if key else src.to(self.device)
         graph = self._graphs.get(key, lambda: self._capture(key[0], f)) if key else None
         if graph is not None:
             with stage("step_replay"):
@@ -319,16 +304,6 @@ class Stabilizer:
                 self._inject_host_corners(frame)
             return output
 
-    def _static_input(self, src: torch.Tensor) -> torch.Tensor:
-        """``src`` copied into the graphs' device input of its shape and
-        dtype."""
-        key = (tuple(src.shape), src.dtype)
-        buf = self._inputs.get(key)
-        if buf is None:
-            buf = self._inputs[key] = torch.empty(src.shape, dtype=src.dtype,
-                                                  device=self.device)
-        return buf.copy_(src)
-
     def _adopt_carry(self) -> EngineCarry:
         """:attr:`carry` as the graphs' carry, whose tensors stay put: at
         first a copy of it that shares its frame ring, later the same
@@ -338,7 +313,7 @@ class Stabilizer:
             ring = self.carry.frames
             self._static = map_carry(lambda x: x if x is ring else x.clone(), self.carry)
         elif self.carry is not self._static:
-            _copy_carry(self._static, self.carry)
+            copy_carry(self._static, self.carry)
         self.carry = self._static
         return self._static
 
@@ -352,7 +327,7 @@ class Stabilizer:
         def step():
             new, (output, _) = stabilize_step(carry, f, cfg, mode, center=center,
                                               scale_factor=scale_factor)
-            _copy_carry(carry, new)
+            copy_carry(carry, new)
             return output
 
         step_counters["captures"] += 1

@@ -16,7 +16,8 @@ refuses both.
 :class:`GraphCache` keeps a few graphs by key and captures lazily: a key's
 first call runs eagerly, which loads the kernel libraries, makes the cuBLAS
 handle and fills the caches that capture must find full; its second
-captures.
+captures.  :func:`copy_carry` and :func:`static_input` fill a graph's
+carry and input in place.
 
 The hand-written kernels' launch counters (``ops.affine_warp.launches``,
 ``ops.fast.launches``) count the launches the card runs: a capture runs
@@ -31,21 +32,26 @@ from typing import Callable, Hashable, Optional
 
 import torch
 
+from video_stabilization_tpu_torch.engine.state import EngineCarry, map_carry
 from video_stabilization_tpu_torch.ops import affine_warp, fast
 
 _LAUNCH_COUNTERS = (affine_warp, fast)
 
 
 class StepGraph:
-    """One capture of ``fn()`` on ``device``; :meth:`replay` runs it on the
-    current stream and returns the tensors ``fn`` returned, overwritten by
-    every replay."""
+    """One capture of ``fn()`` on ``device``; :meth:`replay` runs it on that
+    card's current stream and returns the tensors ``fn`` returned,
+    overwritten by every replay."""
 
     def __init__(self, fn: Callable[[], object], device):
+        self.device = device
         before = [m.launches for m in _LAUNCH_COUNTERS]
         self.graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.device(device), torch.cuda.graph(self.graph):
+            # a side stream of this card: torch.cuda.graph's default capture
+            # stream is one stream of the card current at its first use
+            with torch.cuda.device(device), torch.cuda.graph(
+                    self.graph, stream=torch.cuda.Stream(device)):
                 self.outputs = fn()
         finally:
             self.launches = [m.launches - n for m, n in zip(_LAUNCH_COUNTERS, before)]
@@ -53,7 +59,8 @@ class StepGraph:
                 m.launches = n
 
     def replay(self):
-        self.graph.replay()
+        with torch.cuda.device(self.device):
+            self.graph.replay()
         for m, n in zip(_LAUNCH_COUNTERS, self.launches):
             m.launches += n
         return self.outputs
@@ -81,3 +88,19 @@ class GraphCache:
         while len(self._graphs) > self.size:
             self._graphs.popitem(last=False)
         return graph
+
+
+def copy_carry(dst: EngineCarry, src: EngineCarry) -> None:
+    """Copy each tensor of ``src`` into ``dst``'s, but those they share."""
+    map_carry(lambda d, s: d if s is d else d.copy_(s), dst, src)
+
+
+def static_input(buffers: dict, src: torch.Tensor, device) -> torch.Tensor:
+    """``src`` copied into the tensor of ``buffers`` (by shape and dtype)
+    on ``device``, made at its first use: a graph's input, at a fixed
+    address."""
+    key = (tuple(src.shape), src.dtype)
+    buf = buffers.get(key)
+    if buf is None:
+        buf = buffers[key] = torch.empty(src.shape, dtype=src.dtype, device=device)
+    return buf.copy_(src)

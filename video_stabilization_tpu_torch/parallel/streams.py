@@ -37,7 +37,9 @@ so nothing moves between devices: a slot's carry, frames and outputs stay
 on its device, with no collective.  One host thread enqueues every slot's
 work before it waits on any (the forms make no host sync), so the devices
 compute at once as far as the host enqueues a slot faster than a device
-computes one.  On a mesh of more than one slot the carry and the outputs
+computes one: on a card the stream-batched chunk enqueues a slot as one
+replay of its CUDA graph (``make_offline_batched_fn``), the batched step
+kernel by kernel.  On a mesh of more than one slot the carry and the outputs
 are :class:`~video_stabilization_tpu_torch.engine.state.Sharded`, with one
 part per slot; :func:`unshard` brings them to one device in stream order.
 A one-slot mesh keeps the plain carry and tensors.

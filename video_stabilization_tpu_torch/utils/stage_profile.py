@@ -203,7 +203,9 @@ def feeder(cfg, mode, seed: int, chunk: int, dev, streams: int = 0):
     cfg = dataclasses.replace(cfg, static_mode=int(mode))
     if streams:
         state = {"carry": init_batched_carry(cfg, streams, int(mode), prng.key(seed), dev)}
-        fn = make_offline_batched_fn(cfg) if chunk else make_batched_step_fn(cfg)
+        # the stream-batched chunk run eagerly, as its first call runs (its
+        # CUDA graph's replay would show no stage)
+        fn = make_offline_batched_fn(cfg).body if chunk else make_batched_step_fn(cfg)
 
         def feed_streams(frames):
             parts = ([frames[:, i:i + chunk] for i in range(0, frames.shape[1], chunk)]
