@@ -24,7 +24,9 @@ once (the scan once for all its frames; over a mesh once per slot, every
 slot's before any slot is enqueued), runs the shared stages once over all
 S streams, the registration lock only for the ORB and SIFT streams, and
 selects each stream's lock and stabilizing homography on the device
-(``engine/offline.py``).  The offline chunk over streams (``make_offline_batched_fn``,
+(``engine/offline.py``).  :func:`set_stream_mode` switches one stream of a
+batched or sharded carry between calls, as ``Stabilizer.set_stabilization_mode``
+switches a single stream.  The offline chunk over streams (``make_offline_batched_fn``,
 :func:`make_sharded_offline_fn`) requires ``config.static_mode``, as the
 JAX package's does.
 
@@ -83,6 +85,22 @@ def reset_mesh_counters() -> None:
 
 reset_mesh_counters()
 
+# what the batched step's calls (:func:`make_batched_step_fn`, the scan's and
+# the sharded step's slots included) and :func:`set_stream_mode` cost the
+# host since the last :func:`reset_batched_counters`, host clock only and
+# no sync: the calls, each call's wall from its start to its return summed
+# (``host_s``), the calls that read ``carry.mode`` (``mode_reads``) and the
+# streams switched (``switches``)
+batched_counters: dict = {}
+
+
+def reset_batched_counters() -> None:
+    batched_counters.clear()
+    batched_counters.update(calls=0, host_s=0.0, mode_reads=0, switches=0)
+
+
+reset_batched_counters()
+
 
 def init_batched_carry(config: StabilizerConfig, n_streams: int, mode: int,
                        key_words: torch.Tensor, device="cuda") -> EngineCarry:
@@ -109,18 +127,58 @@ def make_batched_step_fn(config: StabilizerConfig) -> Callable:
     host-GFTT lanes are the streaming step's).  Without
     ``config.static_mode`` each stream runs its own ``carry.mode``, read
     once per call, or given as ``modes`` (host ints, one per stream) by a
-    caller that has read it.  Float32 whatever the caller set for TF32."""
+    caller that has read it (the read opens ``stage("mode_read")``).  Float32
+    whatever the caller set for TF32.  Each call adds to
+    :data:`batched_counters`."""
     form = "batched" if config.static_mode is not None else "batched_mixed"
 
     @in_float32
     def step(carry: EngineCarry, frames: torch.Tensor, modes=None):
+        t = time.perf_counter()
         if config.static_mode is None and modes is None:
-            modes = carry.mode.tolist()     # the call's one host read
+            with stage("mode_read"):
+                modes = carry.mode.tolist()     # the call's one host read
+            batched_counters["mode_reads"] += 1
         carry, (outputs, valid) = offline_batched_chunk_step(
             carry, frames[:, None], config, form=form, modes=modes)
+        batched_counters["calls"] += 1
+        batched_counters["host_s"] += time.perf_counter() - t
         return carry, (outputs[:, 0], valid[:, 0])
 
     return step
+
+
+def set_stream_mode(carry, s: int, mode: int):
+    """The carry with stream ``s`` switched to ``mode``: the batched form of
+    ``Stabilizer.set_stabilization_mode`` (the reference app's mode keys).
+    Stream s's mode is set and its lock state cleared (``accum_h``,
+    ``accum_active``, ``lock_prev_h``, ``last_lock_matches`` and both
+    registration references); its frame and transform window and every
+    other stream stay as they were.  ``carry`` is a batched carry or a
+    ``Sharded`` one (the switch lands on the part that holds stream s); its
+    tensors are left alone, the new ones are written on their device with
+    no host sync.  Opens ``stage("mode_switch")``; counts one switch in
+    :data:`batched_counters`."""
+    if isinstance(carry, Sharded):
+        per = carry.parts[0].n.shape[0]
+        parts = list(carry.parts)
+        parts[s // per] = set_stream_mode(parts[s // per], s % per, mode)
+        return Sharded(tuple(parts))
+    with stage("mode_switch"):
+        def row(x, value):              # x with row s set to value
+            x = x.clone()
+            x[s] = value
+            return x
+
+        eye = torch.eye(3, dtype=torch.float32, device=carry.accum_h.device)
+        refs = {name: map_carry(lambda x: row(x, 0), getattr(carry, name))
+                for name in ("orb_ref", "sift_ref")}
+        carry = dataclasses.replace(
+            carry, mode=row(carry.mode, int(mode)), accum_h=row(carry.accum_h, eye),
+            accum_active=row(carry.accum_active, False), lock_prev_h=row(carry.lock_prev_h, eye),
+            last_lock_matches=row(carry.last_lock_matches, 0), **refs)
+    batched_counters["switches"] += 1
+    return carry
 
 
 @functools.lru_cache(maxsize=32)
